@@ -26,7 +26,7 @@ def from_xml_string(xml_string: str,
                     assets: Optional[Dict] = None,
                     base_dir: Optional[str] = None,
                     dtype: torch.dtype = torch.float32,
-                    device='cpu',
+                    device='cuda',
                     contact_budget: Optional[int] = None) -> Model:
   """Compile an MJCF string to a Model on `device`.
 
@@ -42,7 +42,7 @@ def from_xml_string(xml_string: str,
 
 
 def from_xml_path(path: str, assets: Optional[Dict] = None,
-                  dtype: torch.dtype = torch.float32, device='cpu',
+                  dtype: torch.dtype = torch.float32, device='cuda',
                   contact_budget: Optional[int] = None) -> Model:
   with open(path, 'r') as f:
     xml = f.read()

@@ -360,7 +360,7 @@ def _static_names(cls):
 
 
 def model_from_numpy(arrays: Dict[str, Any], meta: Dict[str, Any],
-                     device='cpu', dtype=torch.float32) -> Model:
+                     device='cuda', dtype=torch.float32) -> Model:
   """Builds a Model from numpy parameter arrays and static metadata.
 
   arrays: parameter name -> array (float arrays are cast to `dtype`),

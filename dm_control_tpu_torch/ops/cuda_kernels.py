@@ -30,7 +30,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, '_build')
 MAX_N = 64
 
 _NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-               '-O3', '-shared', '-Xcompiler', '-fPIC')
+               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 # the loaded ctypes library, set by build_chol_solve
 _LIB = None
@@ -47,29 +47,34 @@ def _nvcc() -> str:
   return path
 
 
-def build_chol_solve(verbose: bool = False):
+def build_chol_solve():
   """Compiles csrc/chol_solve.cu if needed and loads it.
 
-  Returns (library path, seconds spent compiling, compiler log). With
-  verbose=True, ptxas reports registers and shared memory per kernel.
+  Returns (library path, seconds spent compiling, compiler log). The log
+  holds ptxas's report of registers, stack frame and spills per kernel;
+  it is kept beside the library, so a cached build returns it too.
   """
   global _LIB
   with open(CHOL_SOLVE_SOURCE, 'rb') as f:
     digest = hashlib.sha256(f.read() + repr(_NVCC_FLAGS).encode()).hexdigest()
   lib_path = os.path.join(BUILD_DIR, f'libchol_solve_{digest[:16]}.so')
-  seconds, log = 0.0, ''
+  log_path = lib_path + '.log'
+  seconds = 0.0
   if not os.path.exists(lib_path):
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f'{lib_path}.{os.getpid()}.tmp'
-    cmd = [_nvcc(), *_NVCC_FLAGS, *(['-Xptxas', '-v'] if verbose else []),
-           '-o', tmp, CHOL_SOLVE_SOURCE]
+    cmd = [_nvcc(), *_NVCC_FLAGS, '-o', tmp, CHOL_SOLVE_SOURCE]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
       raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{log}')
+    with open(log_path, 'w') as f:
+      f.write(log)
     os.replace(tmp, lib_path)
+  with open(log_path) as f:
+    log = f.read()
   if _LIB is None or _LIB._name != lib_path:
     lib = ctypes.CDLL(lib_path)
     for name in ('dmc_chol_solve_f32', 'dmc_chol_solve_f64'):
@@ -77,8 +82,19 @@ def build_chol_solve(verbose: bool = False):
       fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
       fn.restype = ctypes.c_int
+    lib.dmc_chol_solve_variant.argtypes = [ctypes.c_int]
+    lib.dmc_chol_solve_variant.restype = ctypes.c_int
     _LIB = lib
   return lib_path, seconds, log
+
+
+def chol_solve_variant(n: int) -> str:
+  """The kernel variant the launcher takes for n, as the library reports
+  it: 'registers N=28' for n <= 28, else 'shared memory'."""
+  if _LIB is None:
+    build_chol_solve()
+  tile = _LIB.dmc_chol_solve_variant(n)
+  return f'registers N={tile}' if tile else 'shared memory'
 
 
 def chol_solve_cuda(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

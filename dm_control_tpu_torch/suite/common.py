@@ -1,17 +1,17 @@
-"""Suite model assets, read from the JAX package's asset directory.
+"""Suite model assets, read from the port's own asset directory.
 
-Counterpart of dm_control_tpu/suite/common/__init__.py. The MJCF files are
-read by path from dm_control_tpu/suite/assets; reading them imports
-nothing of the JAX package.
+Counterpart of dm_control_tpu/suite/common/__init__.py. `assets/` beside
+this module holds verbatim copies of the reference suite's MJCF files
+(humanoid.xml and the include-resolvable common/ files), so the port
+reads no file of the JAX package.
 """
 
 from __future__ import annotations
 
 import os
 
-ASSETS_DIR = os.path.normpath(os.path.join(
-    os.path.dirname(os.path.abspath(__file__)), '..', '..',
-    'dm_control_tpu', 'suite', 'assets'))
+ASSETS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          'assets')
 
 
 def read_assets() -> dict:

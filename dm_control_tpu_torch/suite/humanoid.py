@@ -40,23 +40,23 @@ def _make_env(move_speed, pure_state, time_limit, device, dtype):
 
 
 @SUITE.add('benchmarking')
-def stand(time_limit=_DEFAULT_TIME_LIMIT, device='cpu',
+def stand(time_limit=_DEFAULT_TIME_LIMIT, device='cuda',
           dtype=torch.float32):
   return _make_env(0, False, time_limit, device, dtype)
 
 
 @SUITE.add('benchmarking')
-def walk(time_limit=_DEFAULT_TIME_LIMIT, device='cpu', dtype=torch.float32):
+def walk(time_limit=_DEFAULT_TIME_LIMIT, device='cuda', dtype=torch.float32):
   return _make_env(_WALK_SPEED, False, time_limit, device, dtype)
 
 
 @SUITE.add('benchmarking')
-def run(time_limit=_DEFAULT_TIME_LIMIT, device='cpu', dtype=torch.float32):
+def run(time_limit=_DEFAULT_TIME_LIMIT, device='cuda', dtype=torch.float32):
   return _make_env(_RUN_SPEED, False, time_limit, device, dtype)
 
 
 @SUITE.add()
-def run_pure_state(time_limit=_DEFAULT_TIME_LIMIT, device='cpu',
+def run_pure_state(time_limit=_DEFAULT_TIME_LIMIT, device='cuda',
                    dtype=torch.float32):
   return _make_env(_RUN_SPEED, True, time_limit, device, dtype)
 

@@ -57,20 +57,88 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     cuda_kernels.chol_solve_cuda(H, torch.ones(2, 3))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
-def test_kernel_matches_plain(dtype):
-  """The CUDA kernel against the plain version on the card."""
+def _cuda():
   if not torch.cuda.is_available():
     pytest.skip('needs an NVIDIA GPU with nvcc')
-  rng = np.random.default_rng(1)
+
+
+def _check(H, g, dtype):
+  """Kernel vs plain on the card, relative to each system's solution."""
   tol = 2e-4 if dtype == torch.float32 else 1e-10
-  for n in (1, 8, 27, 32, 64):
-    H = torch.as_tensor(random_spd(rng, 512, n), dtype=dtype, device='cuda')
-    g = torch.as_tensor(rng.normal(size=(512, n)), dtype=dtype,
+  want = linalg.chol_solve_plain(H, g)
+  got = cuda_kernels.chol_solve_cuda(H, g)
+  torch.cuda.synchronize()
+  assert torch.isfinite(got).all()
+  rel = ((got - want).abs().amax(-1) / want.abs().amax(-1)).max().item()
+  assert rel < tol, rel
+
+
+# every variant and its edges: the register tile N = 28 (1 to 28) and
+# shared memory (29 to 64)
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 5, 8, 9, 16, 17, 27, 28, 29, 31, 32, 33,
+                               64])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_kernel_matches_plain(dtype, n):
+  """The CUDA kernel against the plain version on the card."""
+  _cuda()
+  rng = np.random.default_rng(n)
+  H = torch.as_tensor(random_spd(rng, 512, n), dtype=dtype, device='cuda')
+  g = torch.as_tensor(rng.normal(size=(512, n)), dtype=dtype, device='cuda')
+  _check(H, g, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [27, 64])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_kernel_floors_singular_pivots(dtype, n):
+  """Zero rows and columns (a massless dof) and zero matrices: every pivot
+  the floor meets is exactly 0, in any summation order."""
+  _cuda()
+  rng = np.random.default_rng(2)
+  H = random_spd(rng, 96, n)
+  H[0::3, 5, :] = H[0::3, :, 5] = 0
+  H[1::3, 0, :] = H[1::3, :, 0] = H[1::3, -1, :] = H[1::3, :, -1] = 0
+  H[2::3] = 0
+  H = torch.as_tensor(H, dtype=dtype, device='cuda')
+  g = torch.as_tensor(rng.normal(size=(96, n)), dtype=dtype, device='cuda')
+  _check(H, g, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [27, 64])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_kernel_reads_only_the_lower_triangle(dtype, n):
+  """NaN above every diagonal: like the plain version, the kernel reads
+  only the lower triangle, so the two still agree."""
+  _cuda()
+  rng = np.random.default_rng(4)
+  H = random_spd(rng, 96, n)
+  H[:, np.triu_indices(n, 1)[0], np.triu_indices(n, 1)[1]] = np.nan
+  H = torch.as_tensor(H, dtype=dtype, device='cuda')
+  g = torch.as_tensor(rng.normal(size=(96, n)), dtype=dtype, device='cuda')
+  _check(H, g, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('offset', [0, 1, 2, 3])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_kernel_takes_ragged_misaligned_batches(dtype, offset):
+  """Batches that leave a block's last group short, from addresses that
+  are element-aligned but not 16-byte aligned."""
+  _cuda()
+  rng = np.random.default_rng(3)
+  for batch, n in ((1, 27), (13, 27), (1003, 27), (7, 5)):
+    flat = torch.empty(offset + batch * n * n, dtype=dtype, device='cuda')
+    H = flat[offset:].view(batch, n, n)
+    H.copy_(torch.as_tensor(random_spd(rng, batch, n)))
+    g = torch.as_tensor(rng.normal(size=(batch, n)), dtype=dtype,
                         device='cuda')
-    want = linalg.chol_solve_plain(H, g)
-    got = cuda_kernels.chol_solve_cuda(H, g)
-    torch.cuda.synchronize()
-    rel = ((got - want).abs().amax(-1) / want.abs().amax(-1)).max().item()
-    assert rel < tol, (n, rel)
+    _check(H, g, dtype)
+
+
+@pytest.mark.cuda
+def test_kernel_variant_by_n():
+  _cuda()
+  got = [cuda_kernels.chol_solve_variant(n) for n in (1, 27, 28, 29, 64)]
+  assert got == ['registers N=28'] * 3 + ['shared memory'] * 2

@@ -1,6 +1,7 @@
-"""The port's batched humanoid.run environment on the CPU, and its
-independence from JAX."""
+"""The port's batched humanoid.run environment on the CPU, its entry
+points' default device, and its independence from JAX."""
 
+import inspect
 import os
 import subprocess
 import sys
@@ -9,19 +10,25 @@ import textwrap
 import pytest
 import torch
 
+from dm_control_tpu_torch import models
 from dm_control_tpu_torch import suite
+from dm_control_tpu_torch.models import types
 from dm_control_tpu_torch.parallel import BatchedEnvironment
+from dm_control_tpu_torch.suite import common
+from dm_control_tpu_torch.suite import humanoid
 
 # One intra-op thread: the batches here are tiny, and pytest-xdist workers
 # share the host's cores, where a thread pool per worker only contends.
 torch.set_num_threads(1)
 
-_REPO =os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_PORT = os.path.join(_REPO, 'dm_control_tpu_torch')
+_JAX_ASSETS = os.path.join(_REPO, 'dm_control_tpu', 'suite', 'assets')
 
 
 @pytest.fixture(scope='module')
 def env():
-  return suite.load('humanoid', 'run', dtype=torch.float32)
+  return suite.load('humanoid', 'run', device='cpu', dtype=torch.float32)
 
 
 def test_rollout_random_cpu(env):
@@ -78,7 +85,7 @@ def test_port_runs_without_jax():
       torch.set_num_threads(1)
       from dm_control_tpu_torch import suite
       from dm_control_tpu_torch.parallel import BatchedEnvironment
-      env = suite.load('humanoid', 'run')
+      env = suite.load('humanoid', 'run', device='cpu')
       benv = BatchedEnvironment(env.model, env.task, batch_size=2,
                                 n_sub_steps=env.n_sub_steps)
       benv.reset()
@@ -92,3 +99,45 @@ def test_port_runs_without_jax():
                         capture_output=True, text=True, timeout=300)
   assert proc.returncode == 0, proc.stderr
   assert proc.stdout.strip().endswith('ok')
+
+
+@pytest.mark.parametrize('entry_point', [
+    humanoid.stand, humanoid.walk, humanoid.run, humanoid.run_pure_state,
+    models.from_xml_string, models.from_xml_path, types.model_from_numpy,
+], ids=lambda f: f.__name__)
+def test_entry_points_default_to_cuda(entry_point):
+  assert inspect.signature(entry_point).parameters['device'].default == \
+      'cuda'
+
+
+def test_default_device_without_a_card_raises():
+  """No silent fall back to the CPU: torch's own error surfaces."""
+  if torch.cuda.is_available():
+    pytest.skip('a card is present; the default device works here')
+  with pytest.raises((AssertionError, RuntimeError)):
+    suite.load('humanoid', 'run')
+
+
+@pytest.mark.parametrize('name', ['humanoid.xml', 'common/materials.xml',
+                                  'common/skybox.xml', 'common/visual.xml'])
+def test_assets_are_verbatim_copies(name):
+  with open(os.path.join(common.ASSETS_DIR, name), 'rb') as f:
+    ours = f.read()
+  with open(os.path.join(_JAX_ASSETS, name), 'rb') as f:
+    assert ours == f.read()
+
+
+def test_port_reads_no_file_of_the_jax_package():
+  """The assets directory lies inside the port, and no module of the port
+  names the JAX package's asset path."""
+  assert os.path.commonpath([common.ASSETS_DIR, _PORT]) == _PORT
+  assert sorted(common.read_assets()) == sorted(
+      f'{p}common/{n}' for p in ('', './')
+      for n in ('materials.xml', 'skybox.xml', 'visual.xml'))
+  for root, _, files in os.walk(_PORT):
+    for name in files:
+      if name.endswith(('.py', '.cu')):
+        with open(os.path.join(root, name)) as f:
+          src = f.read()
+        assert "'dm_control_tpu'" not in src, name
+        assert 'dm_control_tpu/suite/assets' not in src, name

@@ -102,7 +102,8 @@ def jax_model():
 def torch_model(jax_model):
   """The port's model, handed the JAX model's leaves through the bridge."""
   arrays, meta = jax_model_to_numpy(jax_model)
-  return tmodels.model_from_numpy(arrays, meta, dtype=torch.float64)
+  return tmodels.model_from_numpy(arrays, meta, device='cpu',
+                                  dtype=torch.float64)
 
 
 N_CONTACT = 3   # contact-rich envs
@@ -264,7 +265,8 @@ def test_model_matches_jax_build(jax_model):
   """The port's own compiler, builder and calibrate against the JAX
   model: static fields exactly, parameters to 1e-12."""
   tm = tmodels.from_xml_string(thumanoid.make_model(),
-                               assets=jcommon.ASSETS, dtype=torch.float64)
+                               assets=jcommon.ASSETS, device='cpu',
+                               dtype=torch.float64)
   arrays, meta = jax_model_to_numpy(jax_model)
   t_arrays, t_meta = tmodels.model_to_numpy(tm)
   for k, v in t_meta.items():
