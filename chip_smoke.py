@@ -12,20 +12,27 @@ Phases, each of which raises on failure (exit code != 0):
      the register variant must have neither stack nor spills;
   2. compare the kernel with its plain PyTorch version on the card at
      B = 4096, n in {1, 8, 16, 27, 28, 31, 32, 33, 64} (both variants and
-     their edges), float32 and float64, with diagonals spanning 1e-6..1,
-     and on a ragged batch at a misaligned address, a batch with singular
-     (floored) pivots and a batch with NaN above the diagonals; time
-     kernel, plain version and the library's Cholesky solve in turns at
-     humanoid's shape, float32 and float64: the kernel with the card held
-     by a sleep kernel while the host queues the calls (the card's time)
-     and back to back, the other two back to back;
-  3. drive humanoid.run at 4096 envs x 5 substeps on the card through
-     BatchedEnvironment.reset/rollout_random, count the kernel's launches
-     during the rollout and check the outputs;
+     their edges), at every n the suite's models give it, {1, 2, 3, 4, 7,
+     9}, at B = 16384 and 4096, float32 and float64, with diagonals
+     spanning 1e-6..1, and on a ragged batch at a misaligned address, a
+     batch with singular (floored) pivots and a batch with NaN above the
+     diagonals; time kernel, plain version and the library's Cholesky
+     solve in turns at the main paths' shapes (humanoid B = 4096, n = 27;
+     cartpole B = 16384, n = 2; cheetah and walker B = 4096, n = 9): the
+     kernel with the card held by a sleep kernel while the host queues the
+     calls (the card's time) and back to back, the other two back to back;
+  3. drive the main paths on the card through suite.load and
+     BatchedEnvironment.reset/rollout_random, float32: humanoid.run at
+     4096 envs x 5 Euler substeps, cartpole.swingup at 16384 envs x 1 RK4
+     substep, cheetah.run at 4096 envs (its reset settles for 200 steps)
+     and walker.walk at 4096 envs x 10 substeps; count the kernel's
+     launches in each rollout, check the outputs and hold the kernel
+     against its plain version on each path's own mass matrices;
   4. check one control step on the card against the same step on the CPU
-     (where the solve is the plain version) at a small batch in float64.
-The last two lines are a JSON line of per-kernel numbers and
-{"ok": true, "device": {...}}.
+     (where the solve is the plain version) at 4 envs in float64, for
+     humanoid and the six domains of the RK4/energy slice.
+The last three lines are a JSON line of per-kernel numbers, the card's
+name and power limit, and {"ok": true, "device": {...}}.
 """
 
 import json
@@ -37,11 +44,25 @@ import time
 import numpy as np
 import torch
 
-ROLLOUT_ENVS = 4096
 ROLLOUT_STEPS = 20
+# (domain, task, envs, substeps, nv) of each main path
+PATHS = (('humanoid', 'run', 4096, 5, 27),
+         ('cartpole', 'swingup', 16384, 1, 2),
+         ('cheetah', 'run', 4096, 1, 9),
+         ('walker', 'walk', 4096, 10, 9))
 SWEEP_BATCH = 4096
 SWEEP_N = (1, 8, 16, 27, 28, 31, 32, 33, 64)
+# every n the suite's ported models give the kernel: pendulum, cartpole
+# and acrobot, two and three poles, hopper, cheetah and walker
+SUITE_N = (1, 2, 3, 4, 7, 9)
+SUITE_BATCHES = (16384, 4096)
 HUMANOID_NV = 27
+# (batch, n) timed: humanoid's, cartpole's, cheetah's and walker's
+TIMED_SHAPES = ((4096, 27), (16384, 2), (4096, 9))
+# the domains whose control step is held card against CPU
+STEP_DOMAINS = (('humanoid', 'run'), ('cartpole', 'swingup'),
+                ('acrobot', 'swingup'), ('pendulum', 'swingup'),
+                ('cheetah', 'run'), ('walker', 'walk'), ('hopper', 'hop'))
 # relative error bounds, kernel vs plain version (max over each system of
 # |x_kernel - x_plain| / max |x_plain|): both factor the same Jacobi-scaled
 # matrix, so they differ by rounding in another summation order
@@ -181,16 +202,175 @@ def device_ms(fn, iters, cycles_per_ms):
   raise RuntimeError('the sleep never outlasted the host queuing the calls')
 
 
+def drive_path(domain, task, envs, n_sub, nv, card):
+  """Builds `domain.task` on the card (float32), resets `envs` envs and
+  runs rollout_random for ROLLOUT_STEPS control steps; checks the outputs
+  and the kernel on the path's own mass matrices. Returns the path's
+  numbers for the kernels line."""
+  from dm_control_tpu_torch import suite
+  from dm_control_tpu_torch.models import constants
+  from dm_control_tpu_torch.ops import cuda_kernels
+  from dm_control_tpu_torch.ops import forward as forward_ops
+  from dm_control_tpu_torch.ops import linalg
+  from dm_control_tpu_torch.parallel import BatchedEnvironment
+
+  name = f'{domain}.{task}'
+  t0 = time.perf_counter()
+  # no device argument: the entry points build on the card by default
+  env = suite.load(domain, task, dtype=torch.float32)
+  torch.cuda.synchronize()
+  build_s = time.perf_counter() - t0
+  m = env.model
+  if m.device.type != 'cuda':
+    raise RuntimeError(f'suite.load built {name} off the card')
+  if env.n_sub_steps != n_sub or m.nv != nv:
+    raise RuntimeError(f'unexpected {name} configuration: '
+                       f'{env.n_sub_steps} substeps, nv {m.nv}')
+  benv = BatchedEnvironment(m, env.task, batch_size=envs,
+                            n_sub_steps=env.n_sub_steps, seed=0)
+  cuda_kernels.chol_solve_cuda.launches = 0
+  t0 = time.perf_counter()
+  obs = benv.reset()
+  torch.cuda.synchronize()
+  reset_s = time.perf_counter() - t0
+  reset_launches = cuda_kernels.chol_solve_cuda.launches
+  for k, v in obs.items():
+    if v.shape[0] != envs or not torch.isfinite(v).all():
+      raise RuntimeError(f'{name}: bad initial observation {k}')
+  print(f'[3] {name}: model build {build_s:.2f} s, reset of {envs} envs '
+        f'{reset_s:.2f} s ({reset_launches} chol_solve launches); nv {m.nv}, '
+        f'{m.nefc_max} constraint rows, {m.ncon_sel} contact slots, '
+        f'n_sub_steps {env.n_sub_steps}, integrator '
+        f'{constants.IntegratorType(int(m.opt.integrator)).name}', flush=True)
+  cuda_kernels.chol_solve_cuda.launches = 0
+  t0 = time.perf_counter()
+  data, total = benv.rollout_random(ROLLOUT_STEPS)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = cuda_kernels.chol_solve_cuda.launches
+  diverged = data.divergence
+  rate = envs * ROLLOUT_STEPS / wall
+  reward = total.mean().item() / ROLLOUT_STEPS
+  print(f'[3] {name} rollout_random({ROLLOUT_STEPS}) x {envs} envs: '
+        f'{wall:.3f} s, {rate:.1f} env-steps/s (smoke reading, first '
+        f'rollout, eager; {card}); chol_solve launches {launches} '
+        f'({launches / (ROLLOUT_STEPS * n_sub):.2f} a substep); diverged '
+        f'envs {int(diverged.sum())}; reward per env-step: mean '
+        f'{reward:.4f}; peak memory '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB', flush=True)
+  if launches == 0:
+    raise RuntimeError(f'the {name} rollout never launched the kernel')
+  if not torch.isfinite(total).all():
+    raise RuntimeError(f'{name}: non-finite rewards')
+  if total.shape != (envs,) or not ((total >= 0) &
+                                    (total <= ROLLOUT_STEPS)).all():
+    raise RuntimeError(f'{name}: rewards outside [0, steps]')
+  live = ~diverged
+  outputs = dict(qpos=data.qpos, qvel=data.qvel, **env.task.get_observation(
+      m, data))
+  if m.opt.enableflags & constants.EnableBit.ENERGY:
+    outputs['energy'] = data.energy
+  for k, v in outputs.items():
+    if not torch.isfinite(v[live]).all():
+      raise RuntimeError(f'{name}: non-finite {k} outside diverged envs')
+  # the kernel on the main path's own systems: M qacc = qfrc_smooth
+  d = forward_ops.forward_batched(m, data, compute_sensors=False)
+  qfrc = d.qfrc_smooth.contiguous()
+  got = cuda_kernels.chol_solve_cuda(d.qM.contiguous(), qfrc)
+  want = linalg.chol_solve_plain(d.qM, qfrc)
+  torch.cuda.synchronize()
+  abs_err = (got - want).abs().max().item()
+  rel = rel_err(got, want)
+  print(f'[3] {name}: kernel vs plain on the rollout\'s mass matrices '
+        f'{tuple(d.qM.shape)}: max abs err {abs_err:.3e}, max rel err '
+        f'{rel:.3e} (tol {TOL[torch.float32]:.0e}); finite: '
+        f'{", ".join(outputs)}', flush=True)
+  if not rel <= TOL[torch.float32]:
+    raise RuntimeError(f'kernel disagrees with plain on {name}')
+  return dict(envs=envs, substeps=n_sub, build_s=build_s, reset_s=reset_s,
+              reset_launches=reset_launches, env_steps_per_s=rate,
+              launches=launches, reward_per_step=reward, max_abs_err=abs_err)
+
+
+def step_card_vs_cpu(domain, task):
+  """One control step of 4 envs, float64, on the card and on the CPU from
+  the card's reset state: qpos, qvel (relative to max(1, |x|)),
+  observations and reward within STEP_TOL."""
+  from dm_control_tpu_torch import suite
+  from dm_control_tpu_torch.parallel import BatchedEnvironment
+  env64 = suite.load(domain, task, device='cuda', dtype=torch.float64)
+  envc = suite.load(domain, task, device='cpu', dtype=torch.float64)
+  n_sub = env64.n_sub_steps
+  b_gpu = BatchedEnvironment(env64.model, env64.task, batch_size=4,
+                             n_sub_steps=n_sub, seed=3)
+  b_cpu = BatchedEnvironment(envc.model, envc.task, batch_size=4,
+                             n_sub_steps=n_sub, seed=3)
+  b_gpu.reset()
+  state = {k: v.cpu() for k, v in b_gpu.state.items()}
+  actions = torch.rand((4, envc.model.nu), dtype=torch.float64,
+                       generator=torch.Generator().manual_seed(5)) * 2 - 1
+  s_gpu, o_gpu, r_gpu, _, _ = b_gpu.step_core(
+      {k: v.to('cuda') for k, v in state.items()}, actions.to('cuda'))
+  s_cpu, o_cpu, r_cpu, _, _ = b_cpu.step_core(state, actions)
+  rel = lambda a, b: ((a.cpu() - b).abs() / b.abs().clamp_min(1.0)).max(
+  ).item()
+  worst = max([rel(s_gpu[k], s_cpu[k]) for k in ('qpos', 'qvel')] +
+              [rel(o_gpu[k], o_cpu[k]) for k in o_cpu] +
+              [(r_gpu.cpu() - r_cpu).abs().max().item()])
+  print(f'[4] {domain}.{task}: one control step ({n_sub} substeps), card vs '
+        f'CPU, float64, 4 envs: max err {worst:.3e} (tol {STEP_TOL:.0e})',
+        flush=True)
+  if not worst <= STEP_TOL:
+    raise RuntimeError(f'{domain}.{task}: control step on the card '
+                       'disagrees with the CPU')
+
+
+def time_shape(rng, batch, n, dtype, cycles_per_ms, card):
+  """Kernel, plain version and library at one shape, in turns."""
+  H = torch.as_tensor(random_spd(rng, batch, n), dtype=dtype, device='cuda')
+  g = torch.as_tensor(rng.standard_normal((batch, n)), dtype=dtype,
+                      device='cuda')
+  from dm_control_tpu_torch.ops import cuda_kernels
+  from dm_control_tpu_torch.ops import linalg
+  kern = lambda: cuda_kernels.chol_solve_cuda(H, g)
+  plain = lambda: linalg.chol_solve_plain(H, g)
+  # the library's batched Cholesky solve: a yardstick only, never called
+  # by the port; it skips the Jacobi scaling and the pivot floor
+  library = lambda: torch.cholesky_solve(
+      g[..., None], torch.linalg.cholesky_ex(H).L)[..., 0]
+  lib_err = rel_err(library(), plain())
+  # the kernel: the card's time, held. No sleep holds the card for the
+  # other two: the plain version issues hundreds of launches a call, more
+  # than the launch queue holds, and the library's call waits for the
+  # card within; both are timed back to back, at the host's pace
+  p1 = host_ms(plain, 20)
+  k1 = device_ms(kern, 200, cycles_per_ms)
+  l1 = host_ms(library, 50)
+  l2 = host_ms(library, 50)
+  k2 = device_ms(kern, 200, cycles_per_ms)
+  p2 = host_ms(plain, 20)
+  host = host_ms(kern, 200)
+  bound, bound_by = bound_ms(batch, n, dtype)
+  out = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+             library_ms=(l1 + l2) / 2, bound_ms=bound, bound_by=bound_by,
+             host_paced_ms=host)
+  print(f'[2] time at B={batch} n={n} {str(dtype)[6:]}: '
+        f'kernel {k1:.4f}, {k2:.4f} ms (card held); library {l1:.4f}, '
+        f'{l2:.4f} ms (back to back; rel err vs plain {lib_err:.1e}); plain '
+        f'{p1:.4f}, {p2:.4f} ms (back to back); bound {bound:.5f} ms '
+        f'({bound_by}); kernel at {100 * bound / out["ms"]:.1f}% of the '
+        f'bound; kernel back to back {host:.4f} ms (CUDA events, L2-warm; '
+        f'{card})', flush=True)
+  return out
+
+
 def main():
   # ---- phase 0 ----
   if not torch.cuda.is_available():
     raise SystemExit('chip_smoke: CUDA is not available (needs one NVIDIA '
                      'GPU); nothing was run')
   from dm_control_tpu_torch.ops import cuda_kernels
-  from dm_control_tpu_torch.ops import forward as forward_ops
   from dm_control_tpu_torch.ops import linalg
-  from dm_control_tpu_torch import suite
-  from dm_control_tpu_torch.parallel import BatchedEnvironment
 
   dev = torch.device('cuda')
   card = card_line()
@@ -215,6 +395,8 @@ def main():
   for dtype in (torch.float32, torch.float64):
     cases = [(f'B={SWEEP_BATCH} n={n:2d}', random_spd(rng, SWEEP_BATCH, n),
               0) for n in SWEEP_N]
+    cases += [(f'B={batch} n={n:2d} (suite)', random_spd(rng, batch, n), 0)
+              for batch in SUITE_BATCHES for n in SUITE_N]
     # a ragged last block, from an address 1 element past an allocation
     # (not 16-byte aligned)
     cases.append(('B=4093 n=27 misaligned',
@@ -251,125 +433,39 @@ def main():
         raise RuntimeError(f'kernel disagrees with plain: {label} {dtype}')
   timing = {}
   cycles_per_ms = sleep_cycles_per_ms()
-  for dtype in (torch.float32, torch.float64):
-    H = torch.as_tensor(random_spd(rng, SWEEP_BATCH, HUMANOID_NV),
-                        dtype=dtype, device=dev)
-    g = torch.as_tensor(rng.standard_normal((SWEEP_BATCH, HUMANOID_NV)),
-                        dtype=dtype, device=dev)
-    kern = lambda: cuda_kernels.chol_solve_cuda(H, g)
-    plain = lambda: linalg.chol_solve_plain(H, g)
-    # the library's batched Cholesky solve: a yardstick only, never called
-    # by the port; it skips the Jacobi scaling and the pivot floor
-    library = lambda: torch.cholesky_solve(
-        g[..., None], torch.linalg.cholesky_ex(H).L)[..., 0]
-    lib_err = rel_err(library(), plain())
-    # the kernel: the card's time, held. No sleep holds the card for the
-    # other two: the plain version issues hundreds of launches a call, more
-    # than the launch queue holds, and the library's call waits for the
-    # card within; both are timed back to back, at the host's pace
-    p1 = host_ms(plain, 20)
-    k1 = device_ms(kern, 200, cycles_per_ms)
-    l1 = host_ms(library, 50)
-    l2 = host_ms(library, 50)
-    k2 = device_ms(kern, 200, cycles_per_ms)
-    p2 = host_ms(plain, 20)
-    host = host_ms(kern, 200)
-    bound, bound_by = bound_ms(SWEEP_BATCH, HUMANOID_NV, dtype)
-    timing[dtype] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                         library_ms=(l1 + l2) / 2, bound_ms=bound,
-                         bound_by=bound_by, host_paced_ms=host)
-    print(f'[2] time at B={SWEEP_BATCH} n={HUMANOID_NV} {str(dtype)[6:]}: '
-          f'kernel {k1:.4f}, {k2:.4f} ms (card held); library {l1:.4f}, '
-          f'{l2:.4f} ms (back to back; rel err vs plain {lib_err:.1e}); plain '
-          f'{p1:.4f}, {p2:.4f} ms (back to back); bound {bound:.4f} ms '
-          f'({bound_by}); kernel at {100 * bound / timing[dtype]["ms"]:.1f}% '
-          f'of the bound; kernel back to back {host:.4f} ms (CUDA events, '
-          f'L2-warm; {card})', flush=True)
+  for batch, n in TIMED_SHAPES:
+    for dtype in (torch.float32, torch.float64):
+      timing[batch, n, dtype] = time_shape(rng, batch, n, dtype,
+                                           cycles_per_ms, card)
 
   # ---- phase 3 ----
-  t0 = time.perf_counter()
-  # no device argument: the entry points build on the card by default
-  env = suite.load('humanoid', 'run', dtype=torch.float32)
-  if env.model.device.type != 'cuda':
-    raise RuntimeError('suite.load built its model off the card')
-  benv = BatchedEnvironment(env.model, env.task, batch_size=ROLLOUT_ENVS,
-                            n_sub_steps=env.n_sub_steps, seed=0)
-  obs = benv.reset()
-  torch.cuda.synchronize()
-  print(f'[3] humanoid.run model + reset of {ROLLOUT_ENVS} envs on the card: '
-        f'{time.perf_counter() - t0:.2f} s; n_sub_steps={env.n_sub_steps}',
-        flush=True)
-  if env.n_sub_steps != 5 or obs['velocity'].shape != (ROLLOUT_ENVS, 27):
-    raise RuntimeError('unexpected humanoid.run configuration')
-  cuda_kernels.chol_solve_cuda.launches = 0
-  t0 = time.perf_counter()
-  data, total = benv.rollout_random(ROLLOUT_STEPS)
-  torch.cuda.synchronize()
-  wall = time.perf_counter() - t0
-  launches = cuda_kernels.chol_solve_cuda.launches
-  diverged = data.divergence
-  print(f'[3] rollout_random({ROLLOUT_STEPS}) x {ROLLOUT_ENVS} envs: '
-        f'{wall:.3f} s, {ROLLOUT_ENVS * ROLLOUT_STEPS / wall:.1f} env-steps/s '
-        f'(smoke reading, first rollout, eager; {card}); chol_solve launches '
-        f'{launches}; diverged envs {int(diverged.sum())}; peak memory '
-        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB', flush=True)
-  if launches == 0:
-    raise RuntimeError('the rollout never launched the chol_solve kernel')
-  if not torch.isfinite(total).all():
-    raise RuntimeError('non-finite rewards')
-  if not torch.isfinite(data.qpos[~diverged]).all():
-    raise RuntimeError('non-finite qpos outside diverged envs')
-  if total.shape != (ROLLOUT_ENVS,) or not ((total >= 0) &
-                                            (total <= ROLLOUT_STEPS)).all():
-    raise RuntimeError('rewards outside [0, steps]')
-  print(f'[3] reward per env-step: mean {total.mean().item() / ROLLOUT_STEPS:.4f}',
-        flush=True)
-  # the kernel on the main path's own systems: M qacc = qfrc_smooth
-  d = forward_ops.forward_batched(env.model, data, compute_sensors=False)
-  qfrc = d.qfrc_smooth.contiguous()
-  got = cuda_kernels.chol_solve_cuda(d.qM.contiguous(), qfrc)
-  want = linalg.chol_solve_plain(d.qM, qfrc)
-  torch.cuda.synchronize()
-  main_abs = (got - want).abs().max().item()
-  main_rel = rel_err(got, want)
-  print(f'[3] kernel vs plain on the rollout\'s mass matrices '
-        f'{tuple(d.qM.shape)}: max abs err {main_abs:.3e}, max rel err '
-        f'{main_rel:.3e} (tol {TOL[torch.float32]:.0e})', flush=True)
-  if not main_rel <= TOL[torch.float32]:
-    raise RuntimeError('kernel disagrees with plain on the main path')
+  paths = {}
+  for domain, task, envs, n_sub, nv in PATHS:
+    paths[f'{domain}.{task}'] = drive_path(domain, task, envs, n_sub, nv,
+                                           card)
 
   # ---- phase 4 ----
-  env64 = suite.load('humanoid', 'run', device=dev, dtype=torch.float64)
-  envc = suite.load('humanoid', 'run', device='cpu', dtype=torch.float64)
-  b_gpu = BatchedEnvironment(env64.model, env64.task, batch_size=4,
-                             n_sub_steps=5, seed=3)
-  b_cpu = BatchedEnvironment(envc.model, envc.task, batch_size=4,
-                             n_sub_steps=5, seed=3)
-  b_gpu.reset()
-  state = {k: v.cpu() for k, v in b_gpu.state.items()}
-  actions = torch.rand((4, envc.model.nu), dtype=torch.float64,
-                       generator=torch.Generator().manual_seed(5)) * 2 - 1
-  s_gpu, o_gpu, r_gpu, _, _ = b_gpu.step_core(
-      {k: v.to(dev) for k, v in state.items()}, actions.to(dev))
-  s_cpu, o_cpu, r_cpu, _, _ = b_cpu.step_core(state, actions)
-  worst = max(
-      ((s_gpu[k].cpu() - s_cpu[k]).abs() /
-       s_cpu[k].abs().clamp_min(1.0)).max().item()
-      for k in ('qpos', 'qvel'))
-  worst = max(worst, ((r_gpu.cpu() - r_cpu).abs().max().item()))
-  print(f'[4] one control step, card vs CPU, float64, 4 envs: max err '
-        f'{worst:.3e} (tol {STEP_TOL:.0e})', flush=True)
-  if not worst <= STEP_TOL:
-    raise RuntimeError('control step on the card disagrees with the CPU')
+  for domain, task in STEP_DOMAINS:
+    step_card_vs_cpu(domain, task)
 
-  f32, f64 = timing[torch.float32], timing[torch.float64]
+  def shape_entry(batch, n):
+    f32, f64 = timing[batch, n, torch.float32], timing[batch, n,
+                                                       torch.float64]
+    return dict(batch=batch, n=n,
+                variant=cuda_kernels.chol_solve_variant(n), **f32,
+                **{f'{k}_f64': v for k, v in f64.items()})
+
+  # the top-level times are at humanoid's shape, as in earlier versions of
+  # this line; `shapes` holds every timed shape, that one first
   print(json.dumps({'kernels': [{
       'name': 'chol_solve', 'route': 'cuda',
       'source': 'dm_control_tpu_torch/csrc/chol_solve.cu',
       'replaces': 'dm_control_tpu/ops/pallas_kernels.py:40',
-      'variant': cuda_kernels.chol_solve_variant(HUMANOID_NV),
-      'launches': launches, 'max_abs_err': main_abs, **f32,
-      **{f'{k}_f64': v for k, v in f64.items()}}]}))
+      **shape_entry(SWEEP_BATCH, HUMANOID_NV),
+      'launches': sum(p['launches'] for p in paths.values()),
+      'max_abs_err': max(p['max_abs_err'] for p in paths.values()),
+      'paths': paths,
+      'shapes': [shape_entry(b, n) for b, n in TIMED_SHAPES]}]}))
   print(card)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': kind,

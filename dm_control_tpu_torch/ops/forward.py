@@ -1,11 +1,14 @@
-"""Forward dynamics pipeline and the Euler integrator, batched.
+"""Forward dynamics pipeline, energy and the Euler and RK4 integrators,
+batched.
 
 Port of the batched path of dm_control_tpu/ops/forward.py: position,
 velocity, actuation, acceleration and constraint stages over a (B, ...)
-Data, then semi-implicit Euler with implicit joint damping. The three SPD
-solves of a step (smooth acceleration, Newton direction, Euler) go through
-ops/cuda_kernels.chol_solve_batched. RK4 and implicitfast raise
-NotImplementedError.
+Data, the energy stage (potential and kinetic energy per env, when the
+model enables it), then either semi-implicit Euler with implicit joint
+damping or the classic four-stage RK4. Every SPD solve of a step (the
+smooth acceleration, once more per RK4 stage; the Newton direction; the
+Euler update) goes through ops/cuda_kernels.chol_solve_batched. The
+implicitfast and implicit integrators raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -135,7 +138,7 @@ def fwd_pv(m: Model, d: Data, compute_sensors: bool = True) -> Data:
   if compute_sensors:
     d = sensor_ops.sensors(m, d, stages='pv')
   if m.opt.enableflags & constants.EnableBit.ENERGY:
-    raise NotImplementedError('energy is not ported')
+    d = energy(m, d)
   return _check_health(m, d)
 
 
@@ -157,6 +160,70 @@ def forward_batched(m: Model, d: Data, compute_sensors: bool = True) -> Data:
 def forward(m: Model, d: Data) -> Data:
   """Full forward dynamics including all sensors."""
   return forward_batched(m, d, compute_sensors=True)
+
+
+def forward_core_batched(m: Model, d: Data) -> Data:
+  """The stages an RK4 stage needs: no sensors, no energy, no constraint
+  forces (the pre-integration forward_batched pass computes those)."""
+  d = fwd_position(m, d)
+  d = fwd_velocity(m, d)
+  d = fwd_actuation(m, d)
+  d = fwd_acceleration_batched(m, d)
+  return constraint.fwd_constraint_batched(m, d, compute_forces=False)
+
+
+def _spring_schedule(m: Model):
+  """qpos addresses and joint ids of the joint springs: scalar (hinge,
+  slide) coordinates, quaternions (ball and free joints) and the linear
+  part of free joints."""
+
+  def make():
+    scal, quat, lin = ([], []), ([], []), ([], [])
+    for j in range(m.njnt):
+      jt, adr = m.jnt_type[j], m.jnt_qposadr[j]
+      if jt in (_J.HINGE, _J.SLIDE):
+        scal[0].append(adr)
+        scal[1].append(j)
+      elif jt == _J.BALL:
+        quat[0].append(range(adr, adr + 4))
+        quat[1].append(j)
+      else:
+        lin[0].append(range(adr, adr + 3))
+        lin[1].append(j)
+        quat[0].append(range(adr + 3, adr + 7))
+        quat[1].append(j)
+    ix = lambda a, *w: torch.as_tensor(
+        np.asarray(a, dtype=np.int64).reshape((-1,) + w), device=m.device)
+    return ((ix(scal[0]), ix(scal[1])), (ix(quat[0], 4), ix(quat[1])),
+            (ix(lin[0], 3), ix(lin[1])))
+
+  return m.memo('spring_schedule', make)
+
+
+def energy(m: Model, d: Data) -> Data:
+  """Potential (gravity, joint and tendon springs) and kinetic energy,
+  (B, 2)."""
+  gravity = m.opt.gravity.to(d.qpos.dtype)
+  pot = -torch.einsum('b,Bb->B', m.body_mass, d.xipos @ gravity)
+  (scal_q, scal_j), (quat_q, quat_j), (lin_q, lin_j) = _spring_schedule(m)
+  if len(scal_j):
+    dif = d.qpos[:, scal_q] - m.qpos_spring[scal_q]
+    pot = pot + 0.5 * torch.sum(m.jnt_stiffness[scal_j] * dif * dif, dim=-1)
+  if len(quat_j):
+    dif = mops.quat_sub(d.qpos[:, quat_q], m.qpos_spring[quat_q])
+    pot = pot + 0.5 * torch.sum(
+        m.jnt_stiffness[quat_j] * torch.sum(dif * dif, dim=-1), dim=-1)
+  if len(lin_j):
+    dif = d.qpos[:, lin_q] - m.qpos_spring[lin_q]
+    pot = pot + 0.5 * torch.sum(
+        m.jnt_stiffness[lin_j] * torch.sum(dif * dif, dim=-1), dim=-1)
+  if m.ntendon:
+    ref = torch.where(m.tendon_lengthspring[:, 0] < 0, m.tendon_length0,
+                      m.tendon_lengthspring[:, 0])
+    dif = d.ten_length - ref
+    pot = pot + 0.5 * torch.sum(m.tendon_stiffness * dif * dif, dim=-1)
+  kin = 0.5 * torch.einsum('Bi,Bij,Bj->B', d.qvel, d.qM, d.qvel)
+  return d.replace(energy=torch.stack([pot, kin], dim=-1))
 
 
 def _integration_schedule(m: Model):
@@ -224,13 +291,52 @@ def _euler_batched(m: Model, d: Data) -> Data:
   return _advance(m, d, cuda_kernels.chol_solve_batched(mhd, qfrc))
 
 
+_RK4_A = ((0.5,), (0.0, 0.5), (0.0, 0.0, 1.0))
+_RK4_B = (1.0 / 6, 1.0 / 3, 1.0 / 3, 1.0 / 6)
+
+
+def _rk4_batched(m: Model, d: Data) -> Data:
+  """Classic RK4 from a forward-computed d. Each stage restarts from d
+  with the stage's qpos, qvel and act; the result keeps d's other fields
+  (its warmstart among them) and advances time by one step."""
+  dt = m.opt.timestep.to(d.qpos.dtype)
+  kv, ka, kad = [d.qvel], [d.qacc], [d.act_dot]
+  for arow in _RK4_A:
+    dq = sum(a * v for a, v in zip(arow, kv) if a)
+    dv = sum(a * acc for a, acc in zip(arow, ka) if a)
+    di = d.replace(qpos=integrate_pos(m, d.qpos, dq, dt),
+                   qvel=d.qvel + dt * dv)
+    if m.na:
+      dact = sum(a * ad for a, ad in zip(arow, kad) if a)
+      di = di.replace(act=d.act + dt * dact)
+    di = forward_core_batched(m, di)
+    kv.append(di.qvel)
+    ka.append(di.qacc)
+    kad.append(di.act_dot)
+  vbar = sum(b * v for b, v in zip(_RK4_B, kv))
+  abar = sum(b * a for b, a in zip(_RK4_B, ka))
+  act = d.act
+  if m.na:
+    act = d.act + dt * sum(b * ad for b, ad in zip(_RK4_B, kad))
+  return d.replace(qpos=integrate_pos(m, d.qpos, vbar, dt),
+                   qvel=d.qvel + dt * abar, act=act, time=d.time + dt)
+
+
 def step_batched(m: Model, d: Data, compute_sensors: bool = True) -> Data:
-  """One physics step of the batch: forward dynamics, then Euler."""
+  """One physics step of the batch: forward dynamics, then Euler or RK4.
+
+  compute_sensors=False skips the per-step sensors (the rollout reads
+  sensors from its position/velocity refresh after the substeps).
+  """
   integ = int(m.opt.integrator)
-  if integ != constants.IntegratorType.EULER:
+  if integ not in (constants.IntegratorType.EULER,
+                   constants.IntegratorType.RK4):
     raise NotImplementedError(
-        f'integrator {constants.IntegratorType(integ).name} is not ported')
+        f'integrator {constants.IntegratorType(integ).name} is not ported '
+        '(the port has Euler and RK4)')
   d = forward_batched(m, d, compute_sensors)
+  if integ == constants.IntegratorType.RK4:
+    return _rk4_batched(m, d)
   return _euler_batched(m, d)
 
 

@@ -1,10 +1,11 @@
-"""Control suite of the port: humanoid so far."""
+"""Control suite of the port: the domains ported so far."""
 
 from __future__ import annotations
 
 import importlib
 
-_DOMAINS = ('humanoid',)
+_DOMAINS = ('acrobot', 'cartpole', 'cheetah', 'hopper', 'humanoid', 'pendulum',
+            'walker')
 
 
 def load(domain_name: str, task_name: str, **task_kwargs):

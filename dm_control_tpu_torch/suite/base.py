@@ -47,7 +47,8 @@ class Task(control.Task):
     return slice(adr, adr + self._model.sensor_dim[s])
 
 
-def _uniform(gen: torch.Generator, shape, lo, hi, dtype):
+def uniform(gen: torch.Generator, shape, lo, hi, dtype):
+  """Uniform draws in [lo, hi) from `gen`, on its device."""
   u = torch.rand(shape, generator=gen, device=gen.device, dtype=dtype)
   return lo + (hi - lo) * u
 
@@ -80,12 +81,12 @@ def random_limited_qpos(model: types.Model, batch: int,
         lo, hi = model.jnt_range[j, 0], model.jnt_range[j, 1]
       else:
         lo, hi = -math.pi, math.pi
-      qpos[:, adr] = _uniform(gen, (batch,), lo, hi, dtype)
+      qpos[:, adr] = uniform(gen, (batch,), lo, hi, dtype)
     elif jt == constants.JointType.BALL:
       if limited:
         axis = _unit(torch.randn((batch, 3), generator=gen,
                                  device=gen.device, dtype=dtype))
-        angle = _uniform(gen, (batch,), 0.0, model.jnt_range[j, 1], dtype)
+        angle = uniform(gen, (batch,), 0.0, model.jnt_range[j, 1], dtype)
         q = torch.cat([torch.cos(0.5 * angle)[:, None],
                        torch.sin(0.5 * angle)[:, None] * axis], dim=-1)
       else:
@@ -96,4 +97,18 @@ def random_limited_qpos(model: types.Model, batch: int,
       qpos[:, adr + 3:adr + 7] = _unit(
           torch.rand((batch, 4), generator=gen, device=gen.device,
                      dtype=dtype))
+  return qpos
+
+
+def random_limited_qpos_only_limited(model: types.Model, batch: int,
+                                     gen: torch.Generator) -> torch.Tensor:
+  """qpos0 with only the limited hinge and slide joints drawn uniformly
+  in range, (batch, nq) (the cheetah initializer)."""
+  qpos = model.qpos0.expand(batch, model.nq).clone()
+  for j in range(model.njnt):
+    if model.jnt_limited[j] and model.jnt_type[j] in (
+        constants.JointType.HINGE, constants.JointType.SLIDE):
+      qpos[:, model.jnt_qposadr[j]] = uniform(
+          gen, (batch,), model.jnt_range[j, 0], model.jnt_range[j, 1],
+          model.dtype)
   return qpos

@@ -2,7 +2,7 @@
 
 Counterpart of dm_control_tpu/suite/common/__init__.py. `assets/` beside
 this module holds verbatim copies of the reference suite's MJCF files
-(humanoid.xml and the include-resolvable common/ files), so the port
+(the domains' models and the include-resolvable common/ files), so the port
 reads no file of the JAX package.
 """
 

@@ -75,8 +75,10 @@ def test_initial_poses_are_contact_free(env):
 
 
 def test_port_runs_without_jax():
-  """Build humanoid with the port's own compiler and step it, with jax,
-  dm_env and mujoco made unimportable."""
+  """Build humanoid, cartpole (RK4, energy) and cheetah with the port's
+  own compiler and step them, with jax, dm_env and mujoco made
+  unimportable. Cheetah starts from qpos0: its 200-step settling reset
+  is the same step, held in test_torch_suite.py."""
   code = textwrap.dedent("""
       import sys
       sys.modules['jax'] = sys.modules['dm_env'] = None
@@ -84,13 +86,22 @@ def test_port_runs_without_jax():
       import torch
       torch.set_num_threads(1)
       from dm_control_tpu_torch import suite
+      from dm_control_tpu_torch.models import types
+      from dm_control_tpu_torch.ops import forward
       from dm_control_tpu_torch.parallel import BatchedEnvironment
-      env = suite.load('humanoid', 'run', device='cpu')
-      benv = BatchedEnvironment(env.model, env.task, batch_size=2,
-                                n_sub_steps=env.n_sub_steps)
-      benv.reset()
-      obs, reward, done = benv.step(torch.zeros(2, env.model.nu))
-      assert torch.isfinite(reward).all(), reward
+      for domain, task in (('humanoid', 'run'), ('cartpole', 'swingup'),
+                           ('cheetah', 'run')):
+        env = suite.load(domain, task, device='cpu')
+        benv = BatchedEnvironment(env.model, env.task, batch_size=2,
+                                  n_sub_steps=env.n_sub_steps)
+        if domain == 'cheetah':
+          benv.set_state(forward.slim_state(forward.forward(
+              env.model, types.make_data(env.model, 2))))
+        else:
+          benv.reset()
+        obs, reward, done = benv.step(torch.zeros(2, env.model.nu))
+        assert torch.isfinite(reward).all(), (domain, reward)
+        assert torch.isfinite(benv.data.energy).all(), domain
       assert not any(m == 'dm_control_tpu' or m.startswith('dm_control_tpu.')
                      for m in sys.modules)
       print('ok')
@@ -118,8 +129,10 @@ def test_default_device_without_a_card_raises():
     suite.load('humanoid', 'run')
 
 
-@pytest.mark.parametrize('name', ['humanoid.xml', 'common/materials.xml',
-                                  'common/skybox.xml', 'common/visual.xml'])
+@pytest.mark.parametrize('name', [
+    'humanoid.xml', 'cartpole.xml', 'acrobot.xml', 'pendulum.xml',
+    'cheetah.xml', 'walker.xml', 'hopper.xml', 'common/materials.xml',
+    'common/skybox.xml', 'common/visual.xml'])
 def test_assets_are_verbatim_copies(name):
   with open(os.path.join(common.ASSETS_DIR, name), 'rb') as f:
     ours = f.read()
