@@ -13,24 +13,30 @@ Phases, each of which raises on failure (exit code != 0):
   2. compare the kernel with its plain PyTorch version on the card at
      B = 4096, n in {1, 8, 16, 27, 28, 31, 32, 33, 64} (both variants and
      their edges), at every n the suite's models give it, {1, 2, 3, 4, 7,
-     9}, at B = 16384 and 4096, float32 and float64, with diagonals
+     9, 22, 28}, at B = 16384 and 4096, float32 and float64, with diagonals
      spanning 1e-6..1, and on a ragged batch at a misaligned address, a
      batch with singular (floored) pivots and a batch with NaN above the
      diagonals; time kernel, plain version and the library's Cholesky
      solve in turns at the main paths' shapes (humanoid B = 4096, n = 27;
-     cartpole B = 16384, n = 2; cheetah and walker B = 4096, n = 9): the
-     kernel with the card held by a sleep kernel while the host queues the
-     calls (the card's time) and back to back, the other two back to back;
+     cartpole B = 16384, n = 2; cheetah and walker B = 4096, n = 9;
+     quadruped.fetch B = 4096, n = 28; quadruped walk and run B = 4096,
+     n = 22): the kernel with the card held by a sleep kernel while the
+     host queues the calls (the card's time) and back to back, the other
+     two back to back;
   3. drive the main paths on the card through suite.load and
      BatchedEnvironment.reset/rollout_random, float32: humanoid.run at
      4096 envs x 5 Euler substeps, cartpole.swingup at 16384 envs x 1 RK4
      substep, cheetah.run at 4096 envs (its reset settles for 200 steps)
-     and walker.walk at 4096 envs x 10 substeps; count the kernel's
-     launches in each rollout, check the outputs and hold the kernel
-     against its plain version on each path's own mass matrices;
+     walker.walk at 4096 envs x 10 substeps and quadruped.fetch at 4096
+     envs x 4 substeps; count the kernel's launches in each rollout,
+     report active contacts and live constraint rows per env, check the
+     outputs and hold the kernel against its plain version on each path's
+     own mass matrices; for quadruped.fetch count the CUDA kernel launches
+     of one substep and of its MPR group alone (torch.profiler);
   4. check one control step on the card against the same step on the CPU
      (where the solve is the plain version) at 4 envs in float64, for
-     humanoid and the six domains of the RK4/energy slice.
+     humanoid, the six domains of the RK4/energy slice and quadruped walk
+     and fetch.
 The last three lines are a JSON line of per-kernel numbers, the card's
 name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -49,20 +55,24 @@ ROLLOUT_STEPS = 20
 PATHS = (('humanoid', 'run', 4096, 5, 27),
          ('cartpole', 'swingup', 16384, 1, 2),
          ('cheetah', 'run', 4096, 1, 9),
-         ('walker', 'walk', 4096, 10, 9))
+         ('walker', 'walk', 4096, 10, 9),
+         ('quadruped', 'fetch', 4096, 4, 28))
 SWEEP_BATCH = 4096
 SWEEP_N = (1, 8, 16, 27, 28, 31, 32, 33, 64)
 # every n the suite's ported models give the kernel: pendulum, cartpole
-# and acrobot, two and three poles, hopper, cheetah and walker
-SUITE_N = (1, 2, 3, 4, 7, 9)
+# and acrobot, two and three poles, hopper, cheetah and walker, quadruped
+# walk and run, quadruped fetch
+SUITE_N = (1, 2, 3, 4, 7, 9, 22, 28)
 SUITE_BATCHES = (16384, 4096)
 HUMANOID_NV = 27
-# (batch, n) timed: humanoid's, cartpole's, cheetah's and walker's
-TIMED_SHAPES = ((4096, 27), (16384, 2), (4096, 9))
+# (batch, n) timed: humanoid's, cartpole's, cheetah's and walker's,
+# quadruped fetch's, quadruped walk's and run's
+TIMED_SHAPES = ((4096, 27), (16384, 2), (4096, 9), (4096, 28), (4096, 22))
 # the domains whose control step is held card against CPU
 STEP_DOMAINS = (('humanoid', 'run'), ('cartpole', 'swingup'),
                 ('acrobot', 'swingup'), ('pendulum', 'swingup'),
-                ('cheetah', 'run'), ('walker', 'walk'), ('hopper', 'hop'))
+                ('cheetah', 'run'), ('walker', 'walk'), ('hopper', 'hop'),
+                ('quadruped', 'walk'), ('quadruped', 'fetch'))
 # relative error bounds, kernel vs plain version (max over each system of
 # |x_kernel - x_plain| / max |x_plain|): both factor the same Jacobi-scaled
 # matrix, so they differ by rounding in another summation order
@@ -202,13 +212,54 @@ def device_ms(fn, iters, cycles_per_ms):
   raise RuntimeError('the sleep never outlasted the host queuing the calls')
 
 
-def drive_path(domain, task, envs, n_sub, nv, card):
+def profiled_launches(fn):
+  """(CUDA kernels the card ran, kernel launch calls the host made) in one
+  call of fn, by torch.profiler."""
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  events = prof.events()
+  kernels = sum(1 for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+  calls = sum(1 for e in events if e.name.startswith(
+      ('cudaLaunchKernel', 'cuLaunchKernel')))
+  return kernels, calls
+
+
+def mpr_launches(m, data):
+  """CUDA launches of one physics substep of the batch and of its MPR
+  narrowphase groups alone."""
+  import functools
+  from dm_control_tpu_torch.ops import collision
+  from dm_control_tpu_torch.ops import forward as forward_ops
+  from dm_control_tpu_torch.ops import mpr
+  groups = [(fn, g1, g2) for fn, g1, g2, _ in collision._plan(m)[0]
+            if isinstance(fn, functools.partial) and fn.func is mpr.collide]
+
+  def substep():
+    forward_ops.step_batched(m, data, compute_sensors=False)
+
+  def mpr_only():
+    for fn, g1, g2 in groups:
+      fn(data.geom_xpos[:, g1], data.geom_xmat[:, g1], m.geom_size[g1],
+         data.geom_xpos[:, g2], data.geom_xmat[:, g2], m.geom_size[g2])
+
+  substep()
+  mpr_only()
+  return profiled_launches(substep), profiled_launches(mpr_only), len(groups)
+
+
+def drive_path(domain, task, envs, n_sub, nv, card, timing):
   """Builds `domain.task` on the card (float32), resets `envs` envs and
   runs rollout_random for ROLLOUT_STEPS control steps; checks the outputs
   and the kernel on the path's own mass matrices. Returns the path's
   numbers for the kernels line."""
   from dm_control_tpu_torch import suite
   from dm_control_tpu_torch.models import constants
+  from dm_control_tpu_torch.ops import constraint
   from dm_control_tpu_torch.ops import cuda_kernels
   from dm_control_tpu_torch.ops import forward as forward_ops
   from dm_control_tpu_torch.ops import linalg
@@ -260,6 +311,34 @@ def drive_path(domain, task, envs, n_sub, nv, card):
         f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB', flush=True)
   if launches == 0:
     raise RuntimeError(f'the {name} rollout never launched the kernel')
+  step_ms = wall * 1e3 / ROLLOUT_STEPS
+  held = timing.get((envs, nv, torch.float32))
+  if held is None:
+    share = 'not timed at this shape'
+  else:
+    card_ms = launches / ROLLOUT_STEPS * held['ms']
+    share = (f'{card_ms:.4f} ms of the card a control step, '
+             f'{100 * card_ms / step_ms:.3f} % of it (held time at '
+             f'B={envs} n={nv})')
+  con = data.contact
+  ncon = con.active.sum(dim=-1).float()
+  live_rows = (constraint.make_rows(m, data).slot_active > 0).sum(
+      dim=-1).float()
+  overflow = int(con.overflow.sum())
+  print(f'[3] {name}: {step_ms:.1f} ms a control step; the kernel: {share}; '
+        f'per env at the end: active contacts mean {ncon.mean():.2f} max '
+        f'{int(ncon.max())}, live constraint rows mean {live_rows.mean():.2f} '
+        f'max {int(live_rows.max())} of {m.nefc_max}; contact.overflow in '
+        f'{overflow} '
+        f'envs', flush=True)
+  extra = {}
+  if domain == 'quadruped':
+    (sub_k, sub_c), (mpr_k, mpr_c), n_groups = mpr_launches(m, data)
+    print(f'[3] {name}: torch.profiler, one substep of {envs} envs: '
+          f'{sub_k} CUDA kernels ({sub_c} launch calls); its {n_groups} MPR '
+          f'group(s) alone: {mpr_k} kernels ({mpr_c} launch calls); the '
+          f'substep without them: {sub_k - mpr_k} kernels', flush=True)
+    extra = dict(substep_kernels=sub_k, mpr_kernels=mpr_k)
   if not torch.isfinite(total).all():
     raise RuntimeError(f'{name}: non-finite rewards')
   if total.shape != (envs,) or not ((total >= 0) &
@@ -289,7 +368,11 @@ def drive_path(domain, task, envs, n_sub, nv, card):
     raise RuntimeError(f'kernel disagrees with plain on {name}')
   return dict(envs=envs, substeps=n_sub, build_s=build_s, reset_s=reset_s,
               reset_launches=reset_launches, env_steps_per_s=rate,
-              launches=launches, reward_per_step=reward, max_abs_err=abs_err)
+              control_step_ms=step_ms, launches=launches,
+              reward_per_step=reward, max_abs_err=abs_err,
+              contacts_mean=ncon.mean().item(),
+              live_rows_mean=live_rows.mean().item(), overflow_envs=overflow,
+              **extra)
 
 
 def step_card_vs_cpu(domain, task):
@@ -442,7 +525,7 @@ def main():
   paths = {}
   for domain, task, envs, n_sub, nv in PATHS:
     paths[f'{domain}.{task}'] = drive_path(domain, task, envs, n_sub, nv,
-                                           card)
+                                           card, timing)
 
   # ---- phase 4 ----
   for domain, task in STEP_DOMAINS:

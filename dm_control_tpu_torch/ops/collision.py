@@ -1,16 +1,22 @@
 """Narrowphase collision into static contact slots, batched.
 
 Port of dm_control_tpu/ops/collision.py for the primitive pairs the ported
-slice needs: plane-sphere, plane-capsule, sphere-sphere, sphere-capsule and
-capsule-capsule. The candidate list and slot layout are the model's static
-ones; when the model compacts its slots (ncon_sel < ncon_max) the deepest
-slots of each condim group are kept, in the same order as the JAX package
-(a stable descending sort, lower slot first among equals). Any other geom
-pair raises NotImplementedError.
+domains need. Closed forms: plane against sphere, capsule, cylinder and
+ellipsoid; sphere against sphere, capsule, cylinder and ellipsoid; capsule
+against capsule and cylinder. Other pairs of primitive convex geoms
+(capsule-ellipsoid, ellipsoid-cylinder, ...) go through Minkowski portal
+refinement (ops/mpr.py), as in the JAX package. The candidate list and slot
+layout are the model's static ones; when the model compacts its slots
+(ncon_sel < ncon_max) the deepest slots of each condim group are kept, in
+the same order as the JAX package (a stable descending sort, lower slot
+first among equals). Pairs with a box closed form in the JAX package
+(plane, sphere, capsule or box against a box), meshes and heightfields
+raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -20,13 +26,14 @@ from dm_control_tpu_torch.models import constants
 from dm_control_tpu_torch.models.compiler import _PAIR_NCON
 from dm_control_tpu_torch.models.types import Data, Model
 from dm_control_tpu_torch.ops import math as mops
+from dm_control_tpu_torch.ops import mpr
 
 _G = constants.GeomType
 
 _BIG = 1e10
 
 # Each function: (pos1, mat1, size1, pos2, mat2, size2) with leading dims
-# (B, k) on positions/matrices and (k,) on sizes ->
+# (B, k) on positions/matrices and (k, 3) on sizes ->
 #   (dist (B, k, K), pos (B, k, K, 3), normal (B, k, K, 3)), normal from
 # geom1 to geom2.
 
@@ -52,6 +59,46 @@ def _plane_capsule(p1, m1, s1, p2, m2, s2):
   return dist, pos, torch.stack([n, n], dim=-2)
 
 
+def _to_local(mat, v):
+  """mat' v over the leading dims."""
+  return torch.einsum('...ji,...j->...i', mat, v)
+
+
+def _to_world(mat, v):
+  return torch.einsum('...ij,...j->...i', mat, v)
+
+
+def _plane_cylinder(p1, m1, s1, p2, m2, s2):
+  n = m1[..., :, 2]
+  axis = m2[..., :, 2]
+  r, half = s2[..., 0, None], s2[..., 1, None]
+  # the end cap facing the plane
+  na = mops.dot(n, axis)
+  center = p2 - axis * (half * torch.sign(na + 1e-12)[..., None])
+  # rim direction: steepest descent along -n in the cap plane
+  t = axis * na[..., None] - n
+  tn = mops.norm(t, keepdim=True)
+  t = torch.where(tn > 1e-8, t / torch.clamp(tn, min=1e-12),
+                  mops.make_frame(axis)[..., 1, :])
+  u = mops.cross(axis, t)
+  pts = torch.stack([center + r * t, center - r * t, center + r * u,
+                     center - r * u], dim=-2)
+  h = mops.dot(pts, n[..., None, :]) - mops.dot(p1, n)[..., None]
+  pos = pts - n[..., None, :] * (h * 0.5)[..., None]
+  return h, pos, n[..., None, :].expand(pos.shape)
+
+
+def _plane_ellipsoid(p1, m1, s1, p2, m2, s2):
+  n = m1[..., :, 2]
+  sn = s2 * _to_local(m2, n)
+  support = mops.norm(sn, keepdim=True)
+  # deepest point of the ellipsoid's surface along -n
+  point = p2 + _to_world(m2, -(s2 * sn) / torch.clamp(support, min=1e-12))
+  h = mops.dot(n, point - p1)
+  pos = point - n * (h * 0.5)[..., None]
+  return h[..., None], pos[..., None, :], n[..., None, :]
+
+
 def _sphere_sphere(p1, m1, s1, p2, m2, s2):
   dif = p2 - p1
   dist = mops.norm(dif)
@@ -70,6 +117,38 @@ def _sphere_capsule(p1, m1, s1, p2, m2, s2):
   half = s2[..., 1][..., None]
   seg_pt = mops.closest_segment_point(p2 - axis * half, p2 + axis * half, p1)
   return _sphere_sphere(p1, m1, s1, seg_pt, m2, s2)
+
+
+def _sphere_cylinder(p1, m1, s1, p2, m2, s2):
+  # the sphere's center clamped into the cylinder's solid volume
+  local = _to_local(m2, p1 - p2)
+  r, half = s2[..., 0], s2[..., 1]
+  rad = mops.norm(local[..., :2], keepdim=True)
+  xy = local[..., :2] * torch.clamp(
+      r[..., None] / torch.clamp(rad, min=1e-12), max=1.0)
+  z = torch.maximum(torch.minimum(local[..., 2], half), -half)
+  surf = p2 + _to_world(m2, torch.cat([xy, z[..., None]], dim=-1))
+  dif = surf - p1
+  dist = mops.norm(dif)
+  n = dif / torch.clamp(dist, min=1e-12)[..., None]
+  pen = dist - s1[..., 0]
+  pos = surf - n * (0.5 * pen)[..., None]
+  return pen[..., None], pos[..., None, :], n[..., None, :]
+
+
+def _sphere_ellipsoid(p1, m1, s1, p2, m2, s2):
+  # the sphere's center projected radially in the ellipsoid's scaled space
+  local = _to_local(m2, p1 - p2)
+  nrm = mops.norm(local / torch.clamp(s2, min=1e-12), keepdim=True)
+  surface = p2 + _to_world(m2, local / torch.clamp(nrm, min=1e-12))
+  dif = p1 - surface
+  dist = mops.norm(dif)
+  outside = nrm[..., 0] > 1.0
+  n = dif / torch.clamp(dist, min=1e-12)[..., None] * torch.where(
+      outside, -1.0, 1.0).to(dist.dtype)[..., None]
+  pen = torch.where(outside, dist, -dist) - s1[..., 0]
+  pos = surface - n * (0.5 * pen)[..., None]
+  return pen[..., None], pos[..., None, :], -n[..., None, :]
 
 
 def _capsule_capsule(p1, m1, s1, p2, m2, s2):
@@ -91,13 +170,34 @@ def _capsule_capsule(p1, m1, s1, p2, m2, s2):
           torch.cat([n0, n1], dim=-2))
 
 
+def _capsule_cylinder(p1, m1, s1, p2, m2, s2):
+  # a sphere at each end of the capsule's segment
+  a1, h1 = m1[..., :, 2], s1[..., 1, None]
+  da, posa, na = _sphere_cylinder(p1 - a1 * h1, m1, s1, p2, m2, s2)
+  db, posb, nb = _sphere_cylinder(p1 + a1 * h1, m1, s1, p2, m2, s2)
+  return (torch.cat([da, db], dim=-1), torch.cat([posa, posb], dim=-2),
+          torch.cat([na, nb], dim=-2))
+
+
 _FUNCS = {
     (_G.PLANE, _G.SPHERE): _plane_sphere,
     (_G.PLANE, _G.CAPSULE): _plane_capsule,
+    (_G.PLANE, _G.ELLIPSOID): _plane_ellipsoid,
+    (_G.PLANE, _G.CYLINDER): _plane_cylinder,
     (_G.SPHERE, _G.SPHERE): _sphere_sphere,
     (_G.SPHERE, _G.CAPSULE): _sphere_capsule,
+    (_G.SPHERE, _G.ELLIPSOID): _sphere_ellipsoid,
+    (_G.SPHERE, _G.CYLINDER): _sphere_cylinder,
     (_G.CAPSULE, _G.CAPSULE): _capsule_capsule,
+    (_G.CAPSULE, _G.CYLINDER): _capsule_cylinder,
 }
+
+# primitive pairs that have no closed form in the JAX package either: one
+# contact slot each, found by MPR (ops/mpr.py)
+_MPR_PAIRS = frozenset([
+    (_G.CAPSULE, _G.ELLIPSOID), (_G.ELLIPSOID, _G.ELLIPSOID),
+    (_G.ELLIPSOID, _G.CYLINDER), (_G.ELLIPSOID, _G.BOX),
+    (_G.CYLINDER, _G.CYLINDER), (_G.CYLINDER, _G.BOX)])
 
 
 def _merge_params(m: Model, cand: List[int]):
@@ -176,16 +276,20 @@ def _plan(m: Model):
     cap_tangent = np.zeros(nmax, dtype=bool)
     calls = []
     for (t1, t2), cand in groups.items():
-      if (t1, t2) not in _FUNCS:
+      # merged first: the margin inflates the MPR supports
+      mrg, gap, fric, sref, simp = _merge_params(m, cand)
+      if (t1, t2) in _FUNCS:
+        fn = _FUNCS[(t1, t2)]
+      elif (t1, t2) in _MPR_PAIRS:
+        fn = functools.partial(mpr.collide, t1, t2, margin=mrg)
+      else:
         raise NotImplementedError(
             f'no ported narrowphase for geom types '
             f'({_G(t1).name.lower()}, {_G(t2).name.lower()})')
       k = _PAIR_NCON[(t1, t2)]
       slots = ix([slot_of[ci] + j for ci in cand for j in range(k)])
-      calls.append((_FUNCS[(t1, t2)],
-                    ix([m.cpair_geom1[ci] for ci in cand]),
+      calls.append((fn, ix([m.cpair_geom1[ci] for ci in cand]),
                     ix([m.cpair_geom2[ci] for ci in cand]), slots))
-      mrg, gap, fric, sref, simp = _merge_params(m, cand)
       rep = lambda x: torch.repeat_interleave(x, k, dim=0)
       imargin[slots] = rep(mrg)
       igap[slots] = rep(gap)

@@ -1,8 +1,9 @@
 """Constraint rows and the batched primal Newton solver (pyramidal cones).
 
 Port of dm_control_tpu/ops/constraint.py. The row layout is static
-(joint limits, tendon limits, then contact rows by ascending condim),
-inactive rows carry zero weight, and the solver minimizes
+(equality rows, joint limits, tendon limits, then contact rows by
+ascending condim), inactive rows carry zero weight, and the solver
+minimizes
 
     0.5 (x - a0)' M (x - a0) + 0.5 sum_i D_i s_i(J_i x - aref_i)^2
 
@@ -10,12 +11,15 @@ over qacc x with damped Newton steps and an exact line search. The
 Newton direction is one batched SPD solve per iteration
 (ops/cuda_kernels.chol_solve_batched).
 
-Outside this port: elliptic cones, equality rows and frictionloss rows
-(NotImplementedError). Differences from the JAX solver, kept simple for
-bring-up: the loop runs every env to convergence or solver_iterations
-(the JAX B < 1024 branch) with no straggler-tail compaction, there is no
-top-K row compaction, and the Hessian is assembled in the working dtype
-(the JAX float32 path assembles it in bfloat16).
+Equality rows of types JOINT and TENDON are ported; CONNECT and WELD
+rows, elliptic cones and frictionloss rows raise NotImplementedError.
+Differences from the JAX solver, kept simple for bring-up: the loop runs
+every env to convergence or solver_iterations (the JAX B < 1024 branch)
+with no straggler-tail compaction, there is no top-K row compaction (the
+JAX solver keeps the 64 rows of largest weight when a model has more than
+160, so the two agree only where at most 64 rows are live), and the
+Hessian is assembled in the working dtype (the JAX float32 path
+assembles it in bfloat16).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from dm_control_tpu_torch.ops import cuda_kernels
 from dm_control_tpu_torch.ops import math as mops
 
 _J = constants.JointType
+_EQ_PORTED = (constants.EqType.JOINT, constants.EqType.TENDON)
 
 
 class Rows(NamedTuple):
@@ -41,12 +46,16 @@ class Rows(NamedTuple):
   solimp: torch.Tensor     # (B, nefc, 5)
   invweight: torch.Tensor
   slot_active: torch.Tensor  # 1.0 where the row exists this step
+  eq: torch.Tensor         # (nefc,) bool: equality rows, always acting
 
 
 def _check_supported(m: Model):
   dis = m.opt.disableflags
-  if m.neq and not dis & constants.DisableBit.EQUALITY:
-    raise NotImplementedError('equality constraint rows are not ported')
+  if not dis & constants.DisableBit.EQUALITY:
+    for et in m.eq_type:
+      if et not in _EQ_PORTED:
+        raise NotImplementedError(
+            f'{constants.EqType(et).name} equality rows are not ported')
   if any(m.dof_hasfrictionloss) and not dis & constants.DisableBit.FRICTIONLOSS:
     raise NotImplementedError('frictionloss rows are not ported')
   if (int(m.opt.cone) == int(constants.ConeType.ELLIPTIC) and m.ncon_sel
@@ -119,10 +128,17 @@ def make_rows(m: Model, d: Data) -> Rows:
   B, dtype, dev = d.qpos.shape[0], d.qpos.dtype, d.qpos.device
   nv = m.nv
   disable = m.opt.disableflags
-  parts = []   # (J (B, nv, k), pos, margin, solref, solimp, iw, active)
+  # (J (B, nv, k), pos, margin, solref, solimp, iw, active), equality
+  # rows first
+  parts = []
+  n_eq = 0
 
   def bcast(x, *shape):
     return x.expand((B,) + shape)
+
+  if m.neq and not disable & constants.DisableBit.EQUALITY:
+    parts.append(_equality_rows(m, d))
+    n_eq = m.neq
 
   if not disable & constants.DisableBit.LIMIT:
     ls = _limit_schedule(m)
@@ -181,10 +197,48 @@ def make_rows(m: Model, d: Data) -> Rows:
     z = torch.zeros((B, 0), dtype=dtype, device=dev)
     return Rows(torch.zeros((B, nv, 0), dtype=dtype, device=dev), z, z,
                 torch.zeros((B, 0, 2), dtype=dtype, device=dev),
-                torch.zeros((B, 0, 5), dtype=dtype, device=dev), z, z)
+                torch.zeros((B, 0, 5), dtype=dtype, device=dev), z, z,
+                torch.zeros(0, dtype=torch.bool, device=dev))
   cols = list(zip(*parts))
-  return Rows(torch.cat(cols[0], dim=-1),
-              *[torch.cat(c, dim=1) for c in cols[1:]])
+  J = torch.cat(cols[0], dim=-1)
+  eq = torch.arange(J.shape[-1], device=dev) < n_eq
+  return Rows(J, *[torch.cat(c, dim=1) for c in cols[1:]], eq)
+
+
+def _equality_rows(m: Model, d: Data):
+  """One row per JOINT or TENDON equality, in the model's order: a joint
+  held at a polynomial of another joint (or at a constant), a tendon
+  held at its rest length plus a constant."""
+  B, dtype, dev = d.qpos.shape[0], d.qpos.dtype, d.qpos.device
+  cols, pos, iw = [], [], []
+  for e in range(m.neq):
+    if m.eq_type[e] == constants.EqType.JOINT:
+      j1, j2 = m.eq_obj1id[e], m.eq_obj2id[e]
+      poly = m.eq_data[e, :5]
+      q1, v1 = m.jnt_qposadr[j1], m.jnt_dofadr[j1]
+      col = torch.zeros((B, m.nv), dtype=dtype, device=dev)
+      col[:, v1] = 1.0
+      if j2 >= 0:
+        q2, v2 = m.jnt_qposadr[j2], m.jnt_dofadr[j2]
+        dif = d.qpos[:, q2] - m.qpos0[q2]
+        rhs = sum(poly[i] * dif ** i for i in range(5))
+        col[:, v2] = -sum(poly[i] * (i * dif ** (i - 1)) for i in range(1, 5))
+        pos.append(d.qpos[:, q1] - m.qpos0[q1] - rhs)
+        iw.append(m.dof_invweight0[v1] + m.dof_invweight0[v2])
+      else:
+        pos.append(d.qpos[:, q1] - m.qpos0[q1] - poly[0])
+        iw.append(m.dof_invweight0[v1])
+      cols.append(col)
+    else:
+      t = m.eq_obj1id[e]
+      cols.append(d.ten_J[:, t])
+      pos.append(d.ten_length[:, t] - m.tendon_length0[t] - m.eq_data[e, 0])
+      iw.append(m.tendon_invweight0[t])
+  k = m.neq
+  return (torch.stack(cols, dim=-1), torch.stack(pos, dim=-1),
+          torch.zeros((B, k), dtype=dtype, device=dev),
+          m.eq_solref.expand(B, k, 2), m.eq_solimp.expand(B, k, 5),
+          torch.stack(iw).expand(B, k), m.eq_active0.expand(B, k))
 
 
 def _contact_rows(m: Model, d: Data):
@@ -263,6 +317,8 @@ def _contact_rows(m: Model, d: Data):
 
 def _num_noncontact_rows(m: Model) -> int:
   n = 0
+  if not m.opt.disableflags & constants.DisableBit.EQUALITY:
+    n += m.neq   # JOINT and TENDON equalities: one row each
   if not m.opt.disableflags & constants.DisableBit.LIMIT:
     n += sum(1 for j in range(m.njnt) if m.jnt_limited[j])
     n += sum(1 for t in range(m.ntendon) if m.tendon_limited[t])
@@ -337,8 +393,8 @@ def fwd_constraint_batched(m: Model, D: Data,
     return torch.einsum('bij,bj->bi', M, x)
 
   def row_weight(jar):
-    # inequality rows act only while violated (jar < 0)
-    return torch.where(jar < 0, dweight, torch.zeros_like(dweight))
+    # equality rows always act, inequality rows only while violated
+    return torch.where(rows.eq | (jar < 0), dweight, torch.zeros_like(dweight))
 
   def row_cost(jar):
     return torch.sum(0.5 * row_weight(jar) * jar * jar, dim=-1)

@@ -1,9 +1,9 @@
 """Sensors of the ported slice, batched.
 
-Port of dm_control_tpu/ops/sensor.py for the seven sensor types humanoid
-declares: subtreelinvel, velocimeter and gyro (position/velocity stage),
-touch, accelerometer, force and torque (acceleration stage). Any other
-type raises NotImplementedError.
+Port of dm_control_tpu/ops/sensor.py for the sensor types of the ported
+domains: subtreecom, subtreelinvel, velocimeter and gyro
+(position/velocity stage), touch, accelerometer, force and torque
+(acceleration stage). Any other type raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from dm_control_tpu_torch.ops import smooth
 
 _S = constants.SensorType
 
-_PV_STAGE = (_S.SUBTREELINVEL, _S.VELOCIMETER, _S.GYRO)
+_PV_STAGE = (_S.SUBTREECOM, _S.SUBTREELINVEL, _S.VELOCIMETER, _S.GYRO)
 _ACC_STAGE = (_S.TOUCH, _S.ACCELEROMETER, _S.FORCE, _S.TORQUE)
 
 
@@ -99,7 +99,9 @@ def sensors(m: Model, d: Data, stages: str = 'all') -> Data:
     st = m.sensor_type[i]
     oid = m.sensor_objid[i]
     adr, dim = m.sensor_adr[i], m.sensor_dim[i]
-    if st == _S.SUBTREELINVEL:
+    if st == _S.SUBTREECOM:
+      val = d.subtree_com[:, oid]
+    elif st == _S.SUBTREELINVEL:
       if vcom is None:
         r = d.xipos - d.subtree_com[:, smooth._rootid(m)]
         vcom = d.cvel[..., 3:] + mops.cross(d.cvel[..., :3], r)

@@ -5,7 +5,7 @@ from __future__ import annotations
 import importlib
 
 _DOMAINS = ('acrobot', 'cartpole', 'cheetah', 'hopper', 'humanoid', 'pendulum',
-            'walker')
+            'quadruped', 'walker')
 
 
 def load(domain_name: str, task_name: str, **task_kwargs):

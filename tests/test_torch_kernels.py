@@ -76,10 +76,11 @@ def _check(H, g, dtype):
 # every variant and its edges: the register tile N = 28 (1 to 28) and
 # shared memory (29 to 64); and every n the suite's models give it (1 to
 # 4: pendulum, cartpole and acrobot, two and three poles; 7: hopper;
-# 9: cheetah and walker; 27: humanoid)
+# 9: cheetah and walker; 22: quadruped walk and run; 27: humanoid; 28:
+# quadruped fetch)
 @pytest.mark.cuda
-@pytest.mark.parametrize('n', [1, 2, 3, 4, 5, 7, 8, 9, 16, 17, 27, 28, 29,
-                               31, 32, 33, 64])
+@pytest.mark.parametrize('n', [1, 2, 3, 4, 5, 7, 8, 9, 16, 17, 22, 27, 28,
+                               29, 31, 32, 33, 64])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_kernel_matches_plain(dtype, n):
   """The CUDA kernel against the plain version on the card."""

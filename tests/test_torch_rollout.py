@@ -131,7 +131,8 @@ def test_default_device_without_a_card_raises():
 
 @pytest.mark.parametrize('name', [
     'humanoid.xml', 'cartpole.xml', 'acrobot.xml', 'pendulum.xml',
-    'cheetah.xml', 'walker.xml', 'hopper.xml', 'common/materials.xml',
+    'cheetah.xml', 'walker.xml', 'hopper.xml', 'quadruped.xml',
+    'common/materials.xml',
     'common/skybox.xml', 'common/visual.xml'])
 def test_assets_are_verbatim_copies(name):
   with open(os.path.join(common.ASSETS_DIR, name), 'rb') as f:
