@@ -12,31 +12,39 @@ Phases, each of which raises on failure (exit code != 0):
      the register variant must have neither stack nor spills;
   2. compare the kernel with its plain PyTorch version on the card at
      B = 4096, n in {1, 8, 16, 27, 28, 31, 32, 33, 64} (both variants and
-     their edges), at every n the suite's models give it, {1, 2, 3, 4, 7,
-     9, 22, 28}, at B = 16384 and 4096, float32 and float64, with diagonals
-     spanning 1e-6..1, and on a ragged batch at a misaligned address, a
-     batch with singular (floored) pivots and a batch with NaN above the
-     diagonals; time kernel, plain version and the library's Cholesky
-     solve in turns at the main paths' shapes (humanoid B = 4096, n = 27;
-     cartpole B = 16384, n = 2; cheetah and walker B = 4096, n = 9;
-     quadruped.fetch B = 4096, n = 28; quadruped walk and run B = 4096,
-     n = 22): the kernel with the card held by a sleep kernel while the
-     host queues the calls (the card's time) and back to back, the other
-     two back to back;
+     their edges), at every n the suite's models give it, {1, 2, 3, 4, 6,
+     7, 9, 13, 22, 28, 62}, at B = 16384 and 4096, float32 and float64,
+     with diagonals spanning 1e-6..1, and on a ragged batch at a
+     misaligned address, a batch with singular (floored) pivots and a
+     batch with NaN above the diagonals; time kernel, plain version and
+     the library's Cholesky solve in turns at the main paths' shapes
+     (humanoid B = 4096, n = 27; cartpole B = 16384, n = 2; cheetah and
+     walker B = 4096, n = 9; quadruped.fetch B = 4096, n = 28; quadruped
+     walk and run B = 4096, n = 22; humanoid_CMU B = 4096, n = 62, the
+     shared-memory variant): the kernel with the card held by a sleep
+     kernel while the host queues the calls (the card's time) and back
+     to back, the other two back to back;
   3. drive the main paths on the card through suite.load and
      BatchedEnvironment.reset/rollout_random, float32: humanoid.run at
      4096 envs x 5 Euler substeps, cartpole.swingup at 16384 envs x 1 RK4
      substep, cheetah.run at 4096 envs (its reset settles for 200 steps)
-     walker.walk at 4096 envs x 10 substeps and quadruped.fetch at 4096
-     envs x 4 substeps; count the kernel's launches in each rollout,
-     report active contacts and live constraint rows per env, check the
-     outputs and hold the kernel against its plain version on each path's
-     own mass matrices; for quadruped.fetch count the CUDA kernel launches
+     walker.walk at 4096 envs x 10 substeps, quadruped.fetch at 4096
+     envs x 4 substeps and humanoid_CMU.run at 4096 envs x 10 substeps;
+     count the kernel's launches in each rollout, report the envs still
+     in contact after the reset, active contacts and live constraint rows
+     per env, check the outputs and hold the kernel against its plain
+     version on every system one more step of each path's end state
+     solves (mass matrices and the Euler update at TOL; Newton Hessians
+     by backward error, and at TOL where well conditioned); for
+     quadruped.fetch and humanoid_CMU.run count the CUDA kernel launches
      of one substep and of its MPR group alone (torch.profiler);
   4. check one control step on the card against the same step on the CPU
      (where the solve is the plain version) at 4 envs in float64, for
-     humanoid, the six domains of the RK4/energy slice and quadruped walk
-     and fetch.
+     humanoid, the six domains of the RK4/energy slice, quadruped walk
+     and fetch, humanoid_CMU, ball_in_cup, point_mass, fish and lqr;
+  5. read hopper.hop's touch observation over control steps on the card:
+     it must see contact forces and change from step to step (the
+     acceleration-stage sensors come from the last substep's solve).
 The last three lines are a JSON line of per-kernel numbers, the card's
 name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -56,27 +64,46 @@ PATHS = (('humanoid', 'run', 4096, 5, 27),
          ('cartpole', 'swingup', 16384, 1, 2),
          ('cheetah', 'run', 4096, 1, 9),
          ('walker', 'walk', 4096, 10, 9),
-         ('quadruped', 'fetch', 4096, 4, 28))
+         ('quadruped', 'fetch', 4096, 4, 28),
+         ('humanoid_CMU', 'run', 4096, 10, 62))
 SWEEP_BATCH = 4096
 SWEEP_N = (1, 8, 16, 27, 28, 31, 32, 33, 64)
-# every n the suite's ported models give the kernel: pendulum, cartpole
-# and acrobot, two and three poles, hopper, cheetah and walker, quadruped
-# walk and run, quadruped fetch
-SUITE_N = (1, 2, 3, 4, 7, 9, 22, 28)
+# every n the suite's ported models give the kernel: pendulum, cartpole,
+# acrobot, point_mass and lqr_2_1, two and three poles, ball_in_cup,
+# lqr_6_2, hopper, cheetah and walker, fish, quadruped walk and run,
+# quadruped fetch, humanoid_CMU
+SUITE_N = (1, 2, 3, 4, 6, 7, 9, 13, 22, 28, 62)
 SUITE_BATCHES = (16384, 4096)
 HUMANOID_NV = 27
 # (batch, n) timed: humanoid's, cartpole's, cheetah's and walker's,
-# quadruped fetch's, quadruped walk's and run's
-TIMED_SHAPES = ((4096, 27), (16384, 2), (4096, 9), (4096, 28), (4096, 22))
-# the domains whose control step is held card against CPU
-STEP_DOMAINS = (('humanoid', 'run'), ('cartpole', 'swingup'),
-                ('acrobot', 'swingup'), ('pendulum', 'swingup'),
-                ('cheetah', 'run'), ('walker', 'walk'), ('hopper', 'hop'),
-                ('quadruped', 'walk'), ('quadruped', 'fetch'))
+# quadruped fetch's, quadruped walk's and run's, humanoid_CMU's (the
+# shared-memory variant)
+TIMED_SHAPES = ((4096, 27), (16384, 2), (4096, 9), (4096, 28), (4096, 22),
+                (4096, 62))
+# the tasks whose control step is held card against CPU, with the load
+# arguments beyond device and dtype (lqr: the seed of its stiffnesses)
+STEP_DOMAINS = (('humanoid', 'run', {}), ('cartpole', 'swingup', {}),
+                ('acrobot', 'swingup', {}), ('pendulum', 'swingup', {}),
+                ('cheetah', 'run', {}), ('walker', 'walk', {}),
+                ('hopper', 'hop', {}), ('quadruped', 'walk', {}),
+                ('quadruped', 'fetch', {}), ('humanoid_CMU', 'run', {}),
+                ('ball_in_cup', 'catch', {}), ('point_mass', 'easy', {}),
+                ('fish', 'upright', {}), ('lqr', 'lqr_2_1', {'random': 0}),
+                ('lqr', 'lqr_6_2', {'random': 0}))
+# envs and control steps of the phase that reads hopper's touch on the card
+TOUCH_ENVS, TOUCH_STEPS = 256, 25
 # relative error bounds, kernel vs plain version (max over each system of
 # |x_kernel - x_plain| / max |x_plain|): both factor the same Jacobi-scaled
 # matrix, so they differ by rounding in another summation order
 TOL = {torch.float32: 1e-3, torch.float64: 1e-10}
+# a path's own Newton systems, float32: in no system may the kernel's
+# backward error, its max or its mean over the envs, exceed the plain
+# version's by more than this factor plus eps (a single env's is rounding
+# noise: n = 2 systems read 1.4 eps beside the plain version's 0); where
+# the Jacobi-scaled condition number is below WELL_CONDITIONED, cond * eps
+# (1.2e-4) fixes the solution inside TOL and kernel vs plain is held there
+BACKWARD_RATIO = 4
+WELL_CONDITIONED = 1e3
 # peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes/s
 # and FLOP/s outside the tensor cores per type
 PEAK_BYTES = 3.35e12
@@ -105,9 +132,25 @@ def random_spd(rng, batch, n, diag_lo=1e-6, diag_hi=1.0):
   return C * s[..., :, None] * s[..., None, :]
 
 
-def rel_err(got, want):
+def env_rel_err(got, want):
+  """(B,) max |got - want| over max |want| of each system."""
   return ((got - want).abs().amax(-1) /
-          want.abs().amax(-1).clamp_min(1e-30)).max().item()
+          want.abs().amax(-1).clamp_min(1e-30))
+
+
+def rel_err(got, want):
+  return env_rel_err(got, want).max().item()
+
+
+def scaled_condition(H):
+  """(B,) condition number of each Jacobi-scaled system (the matrix the
+  solve factors), from its lower triangle, in float64."""
+  from dm_control_tpu_torch.ops import linalg
+  H = H.double()
+  H = torch.tril(H) + torch.tril(H, -1).transpose(-1, -2)
+  s = linalg.jacobi_scale(H)
+  ev = torch.linalg.eigvalsh(H * s[..., :, None] * s[..., None, :])
+  return ev[..., -1] / ev[..., 0].clamp_min(1e-300)
 
 
 def ptxas_report(log):
@@ -143,11 +186,12 @@ def bound_ms(batch, n, dtype):
   once, and x written once) over the memory rate, or the work (the
   factor's n^3/3 multiply-adds, n^2 of the two substitutions, 2 n^2
   multiplies of the scaling) over the peak rate of the type; whichever is
-  larger."""
+  larger. Returns (bound ms, what bounds it, the bytes' time in ms)."""
   size = torch.finfo(dtype).bits // 8
   mem = batch * (n * (n + 1) // 2 + 2 * n) * size / PEAK_BYTES
   ops = batch * (2 * n ** 3 / 3 + 4 * n * n) / PEAK_FLOPS[dtype]
-  return max(mem, ops) * 1e3, 'bytes' if mem >= ops else 'operations'
+  return (max(mem, ops) * 1e3, 'bytes' if mem >= ops else 'operations',
+          mem * 1e3)
 
 
 def host_ms(fn, iters):
@@ -252,16 +296,144 @@ def mpr_launches(m, data):
   return profiled_launches(substep), profiled_launches(mpr_only), len(groups)
 
 
+def recorded_systems(m, data):
+  """The SPD systems that one physics step of `data` hands the kernel, in
+  call order, each as (H, g, mass), recorded at the dispatch. `mass` marks
+  the step's mass-matrix systems, M qacc = qfrc_smooth and Euler's
+  (M + h diag(damping)) qacc' = qfrc, told apart by H equal to the step's
+  own M or M + h diag(damping); every other system (a Newton direction's
+  M + J' D J, and an RK4 stage's systems) is held as a Newton system."""
+  from dm_control_tpu_torch.ops import cuda_kernels
+  from dm_control_tpu_torch.ops import forward as forward_ops
+  systems = []
+  dispatch = cuda_kernels.chol_solve_batched
+
+  def record(H, g):
+    systems.append((H.contiguous(), g.contiguous()))
+    return dispatch(H, g)
+
+  cuda_kernels.chol_solve_batched = record
+  try:
+    out = forward_ops.step_batched(m, data, compute_sensors=False)
+  finally:
+    cuda_kernels.chol_solve_batched = dispatch
+  mass = (out.qM, out.qM + m.opt.timestep.to(out.qM.dtype) *
+          torch.diag(m.dof_damping))
+  return [(H, g, any(torch.equal(H, M) for M in mass)) for H, g in systems]
+
+
+def backward_error(H, g, x):
+  """(B,) normalized backward error of each system's solution, in float64,
+  on the Jacobi-scaled system the solve factors (A = S H S, b = S g,
+  y = x / s): |A y - b| / (|A| |y| + |b|) in the max norms, with H read
+  from its lower triangle as the solve reads it. A backward-stable
+  Cholesky solve keeps it near n eps whatever the condition number."""
+  from dm_control_tpu_torch.ops import linalg
+  H, g, x = H.double(), g.double(), x.double()
+  H = torch.tril(H) + torch.tril(H, -1).transpose(-1, -2)
+  s = linalg.jacobi_scale(H)
+  A = H * s[..., :, None] * s[..., None, :]
+  y, b = x / s, g * s
+  r = torch.einsum('bij,bj->bi', A, y) - b
+  scale = (A.abs().sum(-1).amax(-1) * y.abs().amax(-1) +
+           b.abs().amax(-1)).clamp_min(1e-300)
+  return r.abs().amax(-1) / scale
+
+
+def worst(values):
+  """Largest entry of a list of tensors, NaN if any entry is NaN (torch's
+  reductions pass a NaN on); 0 for no entries."""
+  flat = [v.flatten() for v in values if v.numel()]
+  return torch.cat(flat).max().item() if flat else 0.0
+
+
+def hold_systems(name, systems, solve):
+  """`solve` (the kernel's wrapper) against the plain version on systems
+  [(H, g, mass)] of one float32 step; raises on any disagreement.
+
+  Envs whose H (lower triangle) or g is not finite are left out and
+  counted. In every other env the solution must be finite. The mass-matrix
+  systems are well conditioned: held by their forward error, kernel
+  against plain, at TOL. A Newton Hessian M + J' D J can be so ill
+  conditioned (Jacobi-scaled condition numbers above 1e6 on
+  quadruped.fetch) that no float32 solve fixes its solution to TOL, the
+  plain version's included. Each Newton env-system is held by the kernel's
+  backward error, within n eps, and each Newton system by its backward
+  errors' max and mean over the envs, within BACKWARD_RATIO times the
+  plain version's plus eps; where its scaled condition number is below
+  WELL_CONDITIONED it is held kernel against plain at TOL too."""
+  from dm_control_tpu_torch.ops import linalg
+  tol, eps = TOL[torch.float32], torch.finfo(torch.float32).eps
+  mass_abs, mass_rel, newton_rel, back_k, back_p = [], [], [], [], []
+  skipped = nonfinite = worse = held = n_newton = 0
+  for H, g, mass in systems:
+    ok_in = (torch.isfinite(torch.tril(H)).flatten(1).all(-1) &
+             torch.isfinite(g).all(-1))
+    skipped += int((~ok_in).sum())
+    if not ok_in.any():
+      continue
+    H, g = H[ok_in], g[ok_in]
+    got = solve(H, g)
+    want = linalg.chol_solve_plain(H, g)
+    nonfinite += int((~torch.isfinite(got).all(-1)).sum())
+    rel = env_rel_err(got, want)
+    if mass:
+      mass_abs.append((got - want).abs())
+      mass_rel.append(rel)
+      continue
+    n_newton += 1
+    bk, bp = backward_error(H, g, got), backward_error(H, g, want)
+    back_k.append(bk)
+    back_p.append(bp)
+    worse += int(not (bk.max() <= BACKWARD_RATIO * bp.max() + eps and
+                      bk.mean() <= BACKWARD_RATIO * bp.mean() + eps))
+    well = scaled_condition(H) < WELL_CONDITIONED
+    held += int(well.sum())
+    newton_rel.append(rel[well])
+  n = systems[0][0].shape[-1]
+  back_tol = n * eps
+  res = dict(max_abs_err=worst(mass_abs), max_rel_err=worst(mass_rel),
+             newton_backward_err=worst(back_k),
+             newton_backward_err_plain=worst(back_p),
+             newton_rel_err_well=worst(newton_rel), newton_well_held=held,
+             nonfinite_input_envs=skipped)
+  print(f'[3] {name}: kernel vs plain on one more step\'s {len(systems)} '
+        f'systems (n {n}); {skipped} env-systems with non-finite H or g '
+        f'left out; kernel solutions not finite in {nonfinite}; mass '
+        f'matrices (smooth, Euler) max abs err {res["max_abs_err"]:.3e}, max '
+        f'rel err {res["max_rel_err"]:.3e} (tol {tol:.0e}); {n_newton} '
+        f'Newton Hessians: backward error kernel '
+        f'{res["newton_backward_err"]:.3e}, plain '
+        f'{res["newton_backward_err_plain"]:.3e} (tol n eps = '
+        f'{back_tol:.1e}), the kernel\'s max or mean above {BACKWARD_RATIO} '
+        f'x the plain version\'s + eps in {worse}; {held} env-systems of '
+        f'scaled condition number < {WELL_CONDITIONED:.0e}: kernel vs plain '
+        f'max rel err '
+        f'{res["newton_rel_err_well"]:.3e} (tol {tol:.0e})', flush=True)
+  if nonfinite:
+    raise RuntimeError(f'{name}: the kernel\'s solution is not finite on '
+                       'finite systems')
+  if not res['max_rel_err'] <= tol:
+    raise RuntimeError(f'kernel disagrees with plain on {name}\'s mass '
+                       'matrices')
+  if not res['newton_backward_err'] <= back_tol or worse:
+    raise RuntimeError(f'kernel not backward stable on {name}\'s Newton '
+                       'Hessians')
+  if not res['newton_rel_err_well'] <= tol:
+    raise RuntimeError(f'kernel disagrees with plain on {name}\'s well '
+                       'conditioned Newton Hessians')
+  return res
+
+
 def drive_path(domain, task, envs, n_sub, nv, card, timing):
   """Builds `domain.task` on the card (float32), resets `envs` envs and
   runs rollout_random for ROLLOUT_STEPS control steps; checks the outputs
-  and the kernel on the path's own mass matrices. Returns the path's
-  numbers for the kernels line."""
+  and the kernel on the systems the path's own state gives it. Returns
+  the path's numbers for the kernels line."""
   from dm_control_tpu_torch import suite
   from dm_control_tpu_torch.models import constants
   from dm_control_tpu_torch.ops import constraint
   from dm_control_tpu_torch.ops import cuda_kernels
-  from dm_control_tpu_torch.ops import forward as forward_ops
   from dm_control_tpu_torch.ops import linalg
   from dm_control_tpu_torch.parallel import BatchedEnvironment
 
@@ -288,8 +460,12 @@ def drive_path(domain, task, envs, n_sub, nv, card, timing):
   for k, v in obs.items():
     if v.shape[0] != envs or not torch.isfinite(v).all():
       raise RuntimeError(f'{name}: bad initial observation {k}')
+  # envs whose reset state still touches: the rejection-sampling
+  # initializers keep an env's last draw after their last round
+  init_contact = int(benv.data.contact.active.any(dim=-1).sum())
   print(f'[3] {name}: model build {build_s:.2f} s, reset of {envs} envs '
-        f'{reset_s:.2f} s ({reset_launches} chol_solve launches); nv {m.nv}, '
+        f'{reset_s:.2f} s ({reset_launches} chol_solve launches; '
+        f'{init_contact} envs in contact after it); nv {m.nv}, '
         f'{m.nefc_max} constraint rows, {m.ncon_sel} contact slots, '
         f'n_sub_steps {env.n_sub_steps}, integrator '
         f'{constants.IntegratorType(int(m.opt.integrator)).name}', flush=True)
@@ -332,7 +508,7 @@ def drive_path(domain, task, envs, n_sub, nv, card, timing):
         f'{overflow} '
         f'envs', flush=True)
   extra = {}
-  if domain == 'quadruped':
+  if domain in ('quadruped', 'humanoid_CMU'):
     (sub_k, sub_c), (mpr_k, mpr_c), n_groups = mpr_launches(m, data)
     print(f'[3] {name}: torch.profiler, one substep of {envs} envs: '
           f'{sub_k} CUDA kernels ({sub_c} launch calls); its {n_groups} MPR '
@@ -352,37 +528,29 @@ def drive_path(domain, task, envs, n_sub, nv, card, timing):
   for k, v in outputs.items():
     if not torch.isfinite(v[live]).all():
       raise RuntimeError(f'{name}: non-finite {k} outside diverged envs')
-  # the kernel on the main path's own systems: M qacc = qfrc_smooth
-  d = forward_ops.forward_batched(m, data, compute_sensors=False)
-  qfrc = d.qfrc_smooth.contiguous()
-  got = cuda_kernels.chol_solve_cuda(d.qM.contiguous(), qfrc)
-  want = linalg.chol_solve_plain(d.qM, qfrc)
-  torch.cuda.synchronize()
-  abs_err = (got - want).abs().max().item()
-  rel = rel_err(got, want)
-  print(f'[3] {name}: kernel vs plain on the rollout\'s mass matrices '
-        f'{tuple(d.qM.shape)}: max abs err {abs_err:.3e}, max rel err '
-        f'{rel:.3e} (tol {TOL[torch.float32]:.0e}); finite: '
-        f'{", ".join(outputs)}', flush=True)
-  if not rel <= TOL[torch.float32]:
-    raise RuntimeError(f'kernel disagrees with plain on {name}')
+  own = hold_systems(name, recorded_systems(m, data),
+                     cuda_kernels.chol_solve_cuda)
+  print(f'[3] {name}: finite: {", ".join(outputs)}', flush=True)
   return dict(envs=envs, substeps=n_sub, build_s=build_s, reset_s=reset_s,
-              reset_launches=reset_launches, env_steps_per_s=rate,
-              control_step_ms=step_ms, launches=launches,
-              reward_per_step=reward, max_abs_err=abs_err,
+              reset_launches=reset_launches, init_contact_envs=init_contact,
+              env_steps_per_s=rate, control_step_ms=step_ms,
+              launches=launches, reward_per_step=reward,
               contacts_mean=ncon.mean().item(),
-              live_rows_mean=live_rows.mean().item(), overflow_envs=overflow,
-              **extra)
+              live_rows_mean=live_rows.mean().item(),
+              live_rows_max=int(live_rows.max()), overflow_envs=overflow,
+              **own, **extra)
 
 
-def step_card_vs_cpu(domain, task):
+def step_card_vs_cpu(domain, task, kwargs):
   """One control step of 4 envs, float64, on the card and on the CPU from
   the card's reset state: qpos, qvel (relative to max(1, |x|)),
   observations and reward within STEP_TOL."""
   from dm_control_tpu_torch import suite
   from dm_control_tpu_torch.parallel import BatchedEnvironment
-  env64 = suite.load(domain, task, device='cuda', dtype=torch.float64)
-  envc = suite.load(domain, task, device='cpu', dtype=torch.float64)
+  env64 = suite.load(domain, task, device='cuda', dtype=torch.float64,
+                     **kwargs)
+  envc = suite.load(domain, task, device='cpu', dtype=torch.float64,
+                    **kwargs)
   n_sub = env64.n_sub_steps
   b_gpu = BatchedEnvironment(env64.model, env64.task, batch_size=4,
                              n_sub_steps=n_sub, seed=3)
@@ -406,6 +574,43 @@ def step_card_vs_cpu(domain, task):
   if not worst <= STEP_TOL:
     raise RuntimeError(f'{domain}.{task}: control step on the card '
                        'disagrees with the CPU')
+
+
+def touch_changes(card):
+  """hopper.hop on the card, float32: its `touch` observation over
+  TOUCH_STEPS control steps of TOUCH_ENVS envs. It reads the last
+  substep's contact forces, so it must be nonzero in some steps and
+  change from step to step (stale sensors would hold the reset's)."""
+  from dm_control_tpu_torch import suite
+  from dm_control_tpu_torch.parallel import BatchedEnvironment
+  env = suite.load('hopper', 'hop', dtype=torch.float32)
+  benv = BatchedEnvironment(env.model, env.task, batch_size=TOUCH_ENVS,
+                            n_sub_steps=env.n_sub_steps, seed=1)
+  benv.reset()
+  gen = torch.Generator(device='cuda').manual_seed(2)
+  touch = []
+  for _ in range(TOUCH_STEPS):
+    actions = torch.rand((TOUCH_ENVS, env.model.nu), generator=gen,
+                         device='cuda') * 2 - 1
+    obs, _, _ = benv.step(actions)
+    touch.append(obs['touch'])
+  touch = torch.stack(touch)                       # (steps, envs, 2)
+  if not torch.isfinite(touch).all():
+    raise RuntimeError('hopper touch: non-finite values')
+  touching = (touch > 0).any(dim=-1).sum(dim=-1)   # envs, per step
+  changed = (touch[1:] != touch[:-1]).any(dim=-1).sum(dim=-1)
+  print(f'[5] hopper.hop touch on the card, {TOUCH_ENVS} envs x '
+        f'{TOUCH_STEPS} control steps: envs touching per step min '
+        f'{int(touching.min())} max {int(touching.max())}; envs whose touch '
+        f'changed from the step before, per step: min {int(changed.min())} '
+        f'max {int(changed.max())}; max log1p(touch) '
+        f'{touch.max().item():.3f} ({card})', flush=True)
+  if int(touching.max()) == 0 or int(changed.max()) == 0:
+    raise RuntimeError('hopper touch never read a contact force, or never '
+                       'changed: acceleration-stage sensors are stale')
+  return dict(envs=TOUCH_ENVS, steps=TOUCH_STEPS,
+              touching_max=int(touching.max()),
+              changed_max=int(changed.max()))
 
 
 def time_shape(rng, batch, n, dtype, cycles_per_ms, card):
@@ -433,17 +638,17 @@ def time_shape(rng, batch, n, dtype, cycles_per_ms, card):
   k2 = device_ms(kern, 200, cycles_per_ms)
   p2 = host_ms(plain, 20)
   host = host_ms(kern, 200)
-  bound, bound_by = bound_ms(batch, n, dtype)
+  bound, bound_by, bytes_ms = bound_ms(batch, n, dtype)
   out = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
              library_ms=(l1 + l2) / 2, bound_ms=bound, bound_by=bound_by,
-             host_paced_ms=host)
+             bytes_bound_ms=bytes_ms, host_paced_ms=host)
   print(f'[2] time at B={batch} n={n} {str(dtype)[6:]}: '
         f'kernel {k1:.4f}, {k2:.4f} ms (card held); library {l1:.4f}, '
         f'{l2:.4f} ms (back to back; rel err vs plain {lib_err:.1e}); plain '
         f'{p1:.4f}, {p2:.4f} ms (back to back); bound {bound:.5f} ms '
-        f'({bound_by}); kernel at {100 * bound / out["ms"]:.1f}% of the '
-        f'bound; kernel back to back {host:.4f} ms (CUDA events, L2-warm; '
-        f'{card})', flush=True)
+        f'({bound_by}; the bytes alone {bytes_ms:.5f} ms); kernel at '
+        f'{100 * bound / out["ms"]:.1f}% of the bound; kernel back to back '
+        f'{host:.4f} ms (CUDA events, L2-warm; {card})', flush=True)
   return out
 
 
@@ -528,8 +733,11 @@ def main():
                                            card, timing)
 
   # ---- phase 4 ----
-  for domain, task in STEP_DOMAINS:
-    step_card_vs_cpu(domain, task)
+  for domain, task, kwargs in STEP_DOMAINS:
+    step_card_vs_cpu(domain, task, kwargs)
+
+  # ---- phase 5 ----
+  touch = touch_changes(card)
 
   def shape_entry(batch, n):
     f32, f64 = timing[batch, n, torch.float32], timing[batch, n,
@@ -548,7 +756,8 @@ def main():
       'launches': sum(p['launches'] for p in paths.values()),
       'max_abs_err': max(p['max_abs_err'] for p in paths.values()),
       'paths': paths,
-      'shapes': [shape_entry(b, n) for b, n in TIMED_SHAPES]}]}))
+      'shapes': [shape_entry(b, n) for b, n in TIMED_SHAPES],
+      'hopper_touch': touch}]}))
   print(card)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': kind,

@@ -272,6 +272,13 @@ class Model(_Base):
     return self.memo(key, lambda: _to_tensor(make(), self.dtype,
                                              self.device))
 
+  def index(self, name: str) -> torch.Tensor:
+    """The static index field `name` (e.g. 'dof_bodyid') as an int64
+    tensor on the device. The dtype is explicit, so an empty field (a
+    model without dofs, sites or contacts) is an index tensor too."""
+    return self.memo(('index', name), lambda: torch.as_tensor(
+        np.asarray(getattr(self, name), dtype=np.int64), device=self.device))
+
   def memo(self, key, make):
     """Any value derived once from static structure (e.g. a schedule)."""
     if key not in self.consts:

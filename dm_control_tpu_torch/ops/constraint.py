@@ -246,8 +246,8 @@ def _contact_rows(m: Model, d: Data):
   con = d.contact
   B, dtype = d.qpos.shape[0], d.qpos.dtype
   nv = m.nv
-  gbody = m.const('geom_bodyid', lambda: m.geom_bodyid)
-  rootid = m.const('body_rootid', lambda: m.body_rootid)
+  gbody = m.index('geom_bodyid')
+  rootid = m.index('body_rootid')
   b1s = gbody[con.geom1]                               # (B, s)
   b2s = gbody[con.geom2]
   root_com = d.subtree_com[:, rootid]                  # (B, nb, 3)

@@ -152,8 +152,12 @@ def fwd_aa_batched(m: Model, d: Data, compute_sensors: bool = True) -> Data:
   return d
 
 
-def forward_batched(m: Model, d: Data, compute_sensors: bool = True) -> Data:
-  d = fwd_pv(m, d, compute_sensors)
+def forward_batched(m: Model, d: Data, compute_sensors: bool = True,
+                    stages: str = 'all') -> Data:
+  """All stages; with compute_sensors, the sensors of `stages`: 'all', or
+  'acc' (the acceleration stage alone, for a caller that recomputes the
+  position/velocity stage after the step)."""
+  d = fwd_pv(m, d, compute_sensors and stages == 'all')
   return fwd_aa_batched(m, d, compute_sensors)
 
 
@@ -322,11 +326,14 @@ def _rk4_batched(m: Model, d: Data) -> Data:
                    qvel=d.qvel + dt * abar, act=act, time=d.time + dt)
 
 
-def step_batched(m: Model, d: Data, compute_sensors: bool = True) -> Data:
+def step_batched(m: Model, d: Data, compute_sensors: bool = True,
+                 stages: str = 'all') -> Data:
   """One physics step of the batch: forward dynamics, then Euler or RK4.
 
   compute_sensors=False skips the per-step sensors (the rollout reads
-  sensors from its position/velocity refresh after the substeps).
+  sensors from its position/velocity refresh after the substeps);
+  stages='acc' computes only the acceleration-stage ones, with the
+  constraint forces they read.
   """
   integ = int(m.opt.integrator)
   if integ not in (constants.IntegratorType.EULER,
@@ -334,7 +341,7 @@ def step_batched(m: Model, d: Data, compute_sensors: bool = True) -> Data:
     raise NotImplementedError(
         f'integrator {constants.IntegratorType(integ).name} is not ported '
         '(the port has Euler and RK4)')
-  d = forward_batched(m, d, compute_sensors)
+  d = forward_batched(m, d, compute_sensors, stages)
   if integ == constants.IntegratorType.RK4:
     return _rk4_batched(m, d)
   return _euler_batched(m, d)

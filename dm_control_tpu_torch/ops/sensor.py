@@ -35,7 +35,7 @@ def _rne_post(m: Model, d: Data):
   rootid = smooth._rootid(m)
   if m.ncon_sel:
     con = d.contact
-    gbody = m.const('geom_bodyid', lambda: m.geom_bodyid)
+    gbody = m.index('geom_bodyid')
     f_world = torch.einsum('Bsji,Bsj->Bsi', con.frame, con.force)
     f_world = torch.where(con.active[..., None], f_world,
                           torch.zeros_like(f_world))
@@ -72,6 +72,12 @@ def _site_zone(m: Model, d: Data, siteid: int, point):
     return torch.sum((local / torch.clamp(size, min=1e-12)) ** 2,
                      dim=-1) <= 1.0
   return torch.all(torch.abs(local) <= torch.clamp(size, min=1e-12), dim=-1)
+
+
+def has_acc_stage(m: Model) -> bool:
+  """Whether the model has a sensor of the acceleration stage."""
+  return m.memo('has_acc_stage', lambda: any(
+      st in _ACC_STAGE for st in m.sensor_type))
 
 
 def sensors(m: Model, d: Data, stages: str = 'all') -> Data:
@@ -117,7 +123,7 @@ def sensors(m: Model, d: Data, stages: str = 'all') -> Data:
       body = m.site_bodyid[oid]
       if m.ncon_sel:
         con = d.contact
-        gbody = m.const('geom_bodyid', lambda: m.geom_bodyid)
+        gbody = m.index('geom_bodyid')
         onbody = (gbody[con.geom1] == body) | (gbody[con.geom2] == body)
         inzone = _site_zone(m, d, oid, con.pos)
         fn = torch.clamp(con.force[..., 0], min=0.0)

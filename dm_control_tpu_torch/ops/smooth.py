@@ -110,11 +110,11 @@ def kinematics(m: Model, d: Data) -> Data:
   xmat = mops.quat_to_mat(xquat)
   xipos = xpos + mops.rot_vec_quat(m.body_ipos, xquat)
   ximat = mops.quat_to_mat(mops.mul_quat(xquat, m.body_iquat))
-  gb = m.const('geom_bodyid', lambda: m.geom_bodyid)
+  gb = m.index('geom_bodyid')
   geom_xpos = xpos[:, gb] + mops.rot_vec_quat(m.geom_pos, xquat[:, gb])
   geom_xmat = mops.quat_to_mat(mops.mul_quat(xquat[:, gb], m.geom_quat))
   if m.nsite:
-    sb = m.const('site_bodyid', lambda: m.site_bodyid)
+    sb = m.index('site_bodyid')
     site_xpos = xpos[:, sb] + mops.rot_vec_quat(m.site_pos, xquat[:, sb])
     site_xmat = mops.quat_to_mat(mops.mul_quat(xquat[:, sb], m.site_quat))
   else:
@@ -132,11 +132,11 @@ def kinematics(m: Model, d: Data) -> Data:
 
 
 def _rootid(m: Model) -> torch.Tensor:
-  return m.const('body_rootid', lambda: m.body_rootid)
+  return m.index('body_rootid')
 
 
 def _dofbody(m: Model) -> torch.Tensor:
-  return m.const('dof_bodyid', lambda: m.dof_bodyid)
+  return m.index('dof_bodyid')
 
 
 def _subtree_sum(m: Model, x: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,13 @@
 Port of dm_control_tpu/parallel/batch_env.py without the mesh: one Model,
 a batch of slim states (forward.SLIM_STATE_FIELDS) and a Python loop over
 control steps. Each control step runs `n_sub_steps` batched physics steps,
-then one position/velocity refresh for observations and rewards (the
-reference's legacy-step freshness contract).
+then one position/velocity refresh for observations and rewards. As in
+MuJoCo's `Physics.step` (mj_step2 then mj_step1 each substep), the
+position- and velocity-stage sensors are of the new state and the
+acceleration-stage sensors (touch, accelerometer, force, torque) of the
+last substep's pre-integration state, from its constraint solve. (The
+JAX package's batched path keeps the acceleration-stage values of the
+episode's first forward instead.)
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch
 
 from dm_control_tpu_torch.models import types
 from dm_control_tpu_torch.ops import forward as forward_ops
+from dm_control_tpu_torch.ops import sensor as sensor_ops
 from dm_control_tpu_torch.rl import control
 
 
@@ -72,9 +78,15 @@ class BatchedEnvironment:
     m, task = self.model, self.task
     d = task.before_step(m, self._inflate(state), actions)
     state = forward_ops.slim_state(d)
-    for _ in range(self._n_sub_steps):
-      d = forward_ops.step_batched(m, self._inflate(state),
-                                   compute_sensors=False)
+    acc = sensor_ops.has_acc_stage(m)
+    for i in range(self._n_sub_steps):
+      # the last substep evaluates the acceleration-stage sensors of its
+      # pre-integration state from its own constraint solve (as MuJoCo's
+      # mj_step2); the refresh below computes the position/velocity stage
+      # for the new state
+      d = forward_ops.step_batched(
+          m, self._inflate(state),
+          compute_sensors=acc and i == self._n_sub_steps - 1, stages='acc')
       state = forward_ops.slim_state(d)
     d = forward_ops.fwd_pv(m, self._inflate(state))
     d = task.after_step(m, d)

@@ -4,14 +4,16 @@ from __future__ import annotations
 
 import importlib
 
-_DOMAINS = ('acrobot', 'cartpole', 'cheetah', 'hopper', 'humanoid', 'pendulum',
+_DOMAINS = ('acrobot', 'ball_in_cup', 'cartpole', 'cheetah', 'fish', 'hopper',
+            'humanoid', 'humanoid_CMU', 'lqr', 'pendulum', 'point_mass',
             'quadruped', 'walker')
 
 
 def load(domain_name: str, task_name: str, **task_kwargs):
   """An Environment for `domain_name.task_name`, e.g. ('humanoid', 'run').
 
-  task_kwargs go to the task factory (time_limit, device, dtype).
+  task_kwargs go to the task factory (time_limit, device, dtype; lqr's
+  also take `random`, the seed of the model's stiffnesses).
   """
   if domain_name not in _DOMAINS:
     raise NotImplementedError(f'domain {domain_name!r} is not ported; '

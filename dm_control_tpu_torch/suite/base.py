@@ -12,6 +12,8 @@ import torch
 
 from dm_control_tpu_torch.models import constants
 from dm_control_tpu_torch.models import types
+from dm_control_tpu_torch.ops import collision as coll_ops
+from dm_control_tpu_torch.ops import smooth
 from dm_control_tpu_torch.rl import control
 
 
@@ -111,4 +113,30 @@ def random_limited_qpos_only_limited(model: types.Model, batch: int,
       qpos[:, model.jnt_qposadr[j]] = uniform(
           gen, (batch,), model.jnt_range[j, 0], model.jnt_range[j, 1],
           model.dtype)
+  return qpos
+
+
+def contact_free_qpos(model: types.Model, batch: int, draw,
+                      max_rounds: int) -> torch.Tensor:
+  """Rejection sampling of contact-free poses, (batch, nq).
+
+  `draw(n)` returns n candidate qpos rows. Only the envs that still have
+  an active contact are redrawn, for at most `max_rounds` rounds after
+  the first draw; an env that still touches then keeps its last draw, as
+  the reference's loop does.
+  """
+
+  def n_contacts(qpos):
+    d = types.make_data(model, qpos.shape[0], dtype=qpos.dtype)
+    d = smooth.kinematics(model, d.replace(qpos=qpos))
+    return coll_ops.collision(model, d).contact.active.sum(dim=-1)
+
+  qpos = draw(batch)
+  n = n_contacts(qpos)
+  for _ in range(max_rounds):
+    redo = torch.nonzero(n > 0)[:, 0]
+    if not len(redo):
+      break
+    qpos[redo] = draw(len(redo))
+    n[redo] = n_contacts(qpos[redo])
   return qpos

@@ -75,12 +75,13 @@ def _check(H, g, dtype):
 
 # every variant and its edges: the register tile N = 28 (1 to 28) and
 # shared memory (29 to 64); and every n the suite's models give it (1 to
-# 4: pendulum, cartpole and acrobot, two and three poles; 7: hopper;
-# 9: cheetah and walker; 22: quadruped walk and run; 27: humanoid; 28:
-# quadruped fetch)
+# 4: pendulum, cartpole, acrobot, point_mass, lqr_2_1, two and three
+# poles, ball_in_cup; 6: lqr_6_2; 7: hopper; 9: cheetah and walker; 13:
+# fish; 22: quadruped walk and run; 27: humanoid; 28: quadruped fetch;
+# 62: humanoid_CMU)
 @pytest.mark.cuda
-@pytest.mark.parametrize('n', [1, 2, 3, 4, 5, 7, 8, 9, 16, 17, 22, 27, 28,
-                               29, 31, 32, 33, 64])
+@pytest.mark.parametrize('n', [1, 2, 3, 4, 5, 6, 7, 8, 9, 13, 16, 17, 22,
+                               27, 28, 29, 31, 32, 33, 62, 64])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_kernel_matches_plain(dtype, n):
   """The CUDA kernel against the plain version on the card."""
@@ -145,3 +146,43 @@ def test_kernel_variant_by_n():
   _cuda()
   got = [cuda_kernels.chol_solve_variant(n) for n in (1, 27, 28, 29, 64)]
   assert got == ['registers N=28'] * 3 + ['shared memory'] * 2
+
+
+@pytest.mark.parametrize('case', ['agrees', 'nan_mass', 'nan_newton',
+                                  'nonfinite_input', 'backward_worse'])
+def test_smoke_check_of_path_systems(case):
+  """chip_smoke.hold_systems, which holds the kernel against the plain
+  version on a path's own systems, here on the CPU with a stand-in for the
+  kernel: it passes a solve that agrees, leaves out (and counts) an env
+  whose system is not finite, and raises on a NaN row of a mass-matrix or
+  Newton solution or on a solution whose backward error is far above the
+  plain version's."""
+  import chip_smoke
+  rng = np.random.default_rng(4)
+  systems = [(torch.as_tensor(random_spd(rng, 8, 6), dtype=torch.float32),
+              torch.as_tensor(rng.normal(size=(8, 6)), dtype=torch.float32),
+              mass) for mass in (True, False)]
+  if case == 'nonfinite_input':
+    systems[1][0][3, 4, 1] = float('nan')
+
+  calls = []
+
+  def solve(H, g):  # called once a system, in order
+    newton = len(calls) == 1
+    calls.append(H.shape[0])
+    x = linalg.chol_solve_plain(H, g)
+    if case == ('nan_newton' if newton else 'nan_mass'):
+      x[2] = float('nan')
+    if case == 'backward_worse' and newton:
+      x = x * 1.01
+    return x
+
+  if case in ('agrees', 'nonfinite_input'):
+    res = chip_smoke.hold_systems('test', systems, solve)
+    assert calls == [8, 7 if case == 'nonfinite_input' else 8]
+    assert res['nonfinite_input_envs'] == (case == 'nonfinite_input')
+    assert res['max_rel_err'] == 0 and res['newton_well_held'] > 0
+  else:
+    with pytest.raises(RuntimeError, match='backward' if case ==
+                       'backward_worse' else 'not finite'):
+      chip_smoke.hold_systems('test', systems, solve)

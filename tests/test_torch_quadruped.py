@@ -557,9 +557,10 @@ def test_fetch_step_matches_jax(fetch_case):
   - one control step of BatchedEnvironment.step_core (N_SUB substeps),
     then the observations and rewards of fetch, walk and run on the full
     forward of its end state, at TOL_SOLVE. step_core's own observations
-    are held too, but for `imu` and `force_torque`: like the JAX
-    environment it carries the acceleration-stage sensors of the state
-    it was given.
+    are held too, but for `imu` and `force_torque`: they read the
+    acceleration-stage sensors, which the port takes from the last
+    substep's solve, as MuJoCo does, and the JAX batched path from the
+    state it was given; test_torch_suite2.py holds them against MuJoCo.
   """
   m, start, first, state, last = fetch_case
   env = _torch_env('fetch')

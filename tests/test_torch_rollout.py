@@ -132,6 +132,8 @@ def test_default_device_without_a_card_raises():
 @pytest.mark.parametrize('name', [
     'humanoid.xml', 'cartpole.xml', 'acrobot.xml', 'pendulum.xml',
     'cheetah.xml', 'walker.xml', 'hopper.xml', 'quadruped.xml',
+    'humanoid_CMU.xml', 'ball_in_cup.xml', 'point_mass.xml', 'fish.xml',
+    'lqr.xml',
     'common/materials.xml',
     'common/skybox.xml', 'common/visual.xml'])
 def test_assets_are_verbatim_copies(name):

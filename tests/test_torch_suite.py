@@ -52,6 +52,9 @@ from test_torch_slice import TOL_SMOOTH, TOL_SOLVE, assert_close, np_
 torch.set_num_threads(1)
 
 B = 4
+# observations that read acceleration-stage sensors, held against the
+# MuJoCo oracle in test_torch_suite2.py
+ACC_STAGE_OBS = {'hopper': ('touch',)}
 
 # domain -> (JAX module, port module, the tasks of one model (name, JAX
 # task, port task), substeps per control step)
@@ -190,6 +193,10 @@ def test_control_step_matches_jax(domain_case):
   (qpos, qvel, and the forward qacc it keeps) and the energy of the
   start and end states.
 
+  hopper's `touch` is not held here: the port reads it from the last
+  substep's solve, as MuJoCo does, and the JAX batched path keeps the
+  start state's; test_torch_suite2.py holds it against MuJoCo.
+
   Tolerances: TOL_SOLVE (1e-6, the Newton solver's stopping tolerance)
   where a constraint row is live; where none is (acrobot has no
   constraints, pendulum none that can be live, cartpole's slider away
@@ -239,7 +246,8 @@ def test_control_step_matches_jax(domain_case):
   for k in ('qpos', 'qvel'):
     assert_close(np_(new_state[k]), ref['state'][k], step_tol, k)
   for k, v in ref['obs'].items():
-    assert_close(np_(obs[k]), v, step_tol, f'obs.{k}')
+    if k not in ACC_STAGE_OBS.get(domain, ()):
+      assert_close(np_(obs[k]), v, step_tol, f'obs.{k}')
   assert_close(np_(reward), ref['reward'][0], step_tol, 'reward')
   d = tforward.fwd_pv(tm, tforward.inflate(tm, new_state))
   for (name, _), task, want in zip(DOMAINS[domain][2], tasks, ref['reward']):
