@@ -9,21 +9,22 @@ Phases, each of which raises on failure (exit code != 0):
   0. require CUDA; print the card's name and power limit (nvidia-smi);
   1. build the CUDA kernel (dm_control_tpu_torch/csrc/chol_solve.cu) and
      print ptxas's registers, stack frame and spills for each variant;
-     the register variant must have neither stack nor spills;
+     both variants (the register tile N = 28 and the block rows N = 64,
+     each in float and double) must have neither stack nor spills;
   2. compare the kernel with its plain PyTorch version on the card at
-     B = 4096, n in {1, 8, 16, 27, 28, 31, 32, 33, 64} (both variants and
-     their edges), at every n the suite's models give it, {1, 2, 3, 4, 6,
-     7, 9, 13, 22, 28, 62}, at B = 16384 and 4096, float32 and float64,
-     with diagonals spanning 1e-6..1, and on a ragged batch at a
-     misaligned address, a batch with singular (floored) pivots and a
-     batch with NaN above the diagonals; time kernel, plain version and
-     the library's Cholesky solve in turns at the main paths' shapes
-     (humanoid B = 4096, n = 27; cartpole B = 16384, n = 2; cheetah and
-     walker B = 4096, n = 9; quadruped.fetch B = 4096, n = 28; quadruped
-     walk and run B = 4096, n = 22; humanoid_CMU B = 4096, n = 62, the
-     shared-memory variant): the kernel with the card held by a sleep
-     kernel while the host queues the calls (the card's time) and back
-     to back, the other two back to back;
+     B = 4096, n in {1, 8, 16, 27, 28, 29, 31, 32, 33, 63, 64} (both
+     variants and their edges), at every n the suite's models give it,
+     {1, 2, 3, 4, 6, 7, 9, 13, 22, 28, 62}, at B = 16384 and 4096, float32
+     and float64, with diagonals spanning 1e-6..1, and, at n = 27 and 62,
+     on a ragged batch at a misaligned address, a batch with singular
+     (floored) pivots and a batch with NaN above the diagonals; time
+     kernel, plain version and the library's Cholesky solve in turns at
+     the main paths' shapes (humanoid B = 4096, n = 27; cartpole
+     B = 16384, n = 2; cheetah and walker B = 4096, n = 9;
+     quadruped.fetch B = 4096, n = 28; quadruped walk and run B = 4096,
+     n = 22; humanoid_CMU B = 4096, n = 62, the block rows): the kernel
+     with the card held by a sleep kernel while the host queues the calls
+     (the card's time) and back to back, the other two back to back;
   3. drive the main paths on the card through suite.load and
      BatchedEnvironment.reset/rollout_random, float32: humanoid.run at
      4096 envs x 5 Euler substeps, cartpole.swingup at 16384 envs x 1 RK4
@@ -67,7 +68,7 @@ PATHS = (('humanoid', 'run', 4096, 5, 27),
          ('quadruped', 'fetch', 4096, 4, 28),
          ('humanoid_CMU', 'run', 4096, 10, 62))
 SWEEP_BATCH = 4096
-SWEEP_N = (1, 8, 16, 27, 28, 31, 32, 33, 64)
+SWEEP_N = (1, 8, 16, 27, 28, 29, 31, 32, 33, 63, 64)
 # every n the suite's ported models give the kernel: pendulum, cartpole,
 # acrobot, point_mass and lqr_2_1, two and three poles, ball_in_cup,
 # lqr_6_2, hopper, cheetah and walker, fish, quadruped walk and run,
@@ -75,9 +76,12 @@ SWEEP_N = (1, 8, 16, 27, 28, 31, 32, 33, 64)
 SUITE_N = (1, 2, 3, 4, 6, 7, 9, 13, 22, 28, 62)
 SUITE_BATCHES = (16384, 4096)
 HUMANOID_NV = 27
+# the n of the misaligned, singular and upper-NaN cases: humanoid's
+# (the register tile) and humanoid_CMU's (the block rows)
+EDGE_N = (HUMANOID_NV, 62)
 # (batch, n) timed: humanoid's, cartpole's, cheetah's and walker's,
 # quadruped fetch's, quadruped walk's and run's, humanoid_CMU's (the
-# shared-memory variant)
+# block rows)
 TIMED_SHAPES = ((4096, 27), (16384, 2), (4096, 9), (4096, 28), (4096, 22),
                 (4096, 62))
 # the tasks whose control step is held card against CPU, with the load
@@ -105,9 +109,10 @@ TOL = {torch.float32: 1e-3, torch.float64: 1e-10}
 BACKWARD_RATIO = 4
 WELL_CONDITIONED = 1e3
 # peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes/s
-# and FLOP/s outside the tensor cores per type
+# and FLOP/s per type, the type's highest (float32 outside the tensor
+# cores, float64 on them)
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 # a control step on the card vs the CPU, float64: the Newton solver stops
 # at the model tolerance, so the two agree to about that
 STEP_TOL = 1e-6
@@ -171,8 +176,7 @@ def ptxas_report(log):
       frame = tuple(int(v) for v in m.groups())
     m = re.search(r'Used (\d+) registers', line)
     if m and entry and frame:
-      t = re.search(r'(chol_solve_(?:reg|smem)_kernel)I([fd])(?:Li(\d+)E)?E',
-                    entry)
+      t = re.search(r'(chol_solve_[a-z]+_kernel)I([fd])(?:Li(\d+)E)?E', entry)
       name = (f'{t.group(1)}<{t.group(2)}' +
               (f', {t.group(3)}>' if t.group(3) else '>')) if t else entry
       out.append((name, int(m.group(1))) + frame)
@@ -184,12 +188,13 @@ def bound_ms(batch, n, dtype):
   """Least time for B solves on the card: the bytes the function needs
   (the lower triangle of H, n (n + 1) / 2 elements, and g, each read
   once, and x written once) over the memory rate, or the work (the
-  factor's n^3/3 multiply-adds, n^2 of the two substitutions, 2 n^2
-  multiplies of the scaling) over the peak rate of the type; whichever is
-  larger. Returns (bound ms, what bounds it, the bytes' time in ms)."""
+  factor's n^3/6 multiply-adds, n^3/3 operations; n^2 multiply-adds, 2 n^2
+  operations, of the two substitutions; 2 n^2 multiplies of the scaling)
+  over the peak rate of the type; whichever is larger. Returns (bound ms,
+  what bounds it, the bytes' time in ms)."""
   size = torch.finfo(dtype).bits // 8
   mem = batch * (n * (n + 1) // 2 + 2 * n) * size / PEAK_BYTES
-  ops = batch * (2 * n ** 3 / 3 + 4 * n * n) / PEAK_FLOPS[dtype]
+  ops = batch * (n ** 3 / 3 + 4 * n * n) / PEAK_FLOPS[dtype]
   return (max(mem, ops) * 1e3, 'bytes' if mem >= ops else 'operations',
           mem * 1e3)
 
@@ -673,10 +678,11 @@ def main():
   for name, regs, stack, spill_st, spill_ld in report:
     print(f'[1] ptxas {name}: {regs} registers, {stack} bytes stack frame, '
           f'{spill_st} bytes spill stores, {spill_ld} bytes spill loads')
-  reg_variants = [r for r in report if r[0].startswith('chol_solve_reg')]
-  if len(reg_variants) != 2 or any(r[2:] != (0, 0, 0) for r in reg_variants):
-    raise RuntimeError('the register variant needs 2 kernels (float and '
-                       'double, N = 28) with no stack frame and no spills')
+  for kernel, count in (('chol_solve_reg', 2), ('chol_solve_rows', 2)):
+    found = [r for r in report if r[0].startswith(kernel)]
+    if len(found) != count or any(r[2:] != (0, 0, 0) for r in found):
+      raise RuntimeError(f'{kernel}_kernel needs {count} instances (float '
+                         'and double) with no stack frame and no spills')
 
   # ---- phase 2 ----
   rng = np.random.default_rng(0)
@@ -685,23 +691,24 @@ def main():
               0) for n in SWEEP_N]
     cases += [(f'B={batch} n={n:2d} (suite)', random_spd(rng, batch, n), 0)
               for batch in SUITE_BATCHES for n in SUITE_N]
-    # a ragged last block, from an address 1 element past an allocation
-    # (not 16-byte aligned)
-    cases.append(('B=4093 n=27 misaligned',
-                  random_spd(rng, 4093, HUMANOID_NV), 1))
-    # floored pivots: zero rows and columns (a massless dof) and zero
-    # matrices; each pivot the floor meets is exactly 0 in any order
-    sing = random_spd(rng, 512, HUMANOID_NV)
-    sing[0::3, 5, :] = sing[0::3, :, 5] = 0
-    sing[1::3, 0, :] = sing[1::3, :, 0] = 0
-    sing[1::3, -1, :] = sing[1::3, :, -1] = 0
-    sing[2::3] = 0
-    cases.append(('B=512 n=27 singular', sing, 0))
-    # NaN above every diagonal: the function reads only the lower triangle
-    upper = random_spd(rng, SWEEP_BATCH, HUMANOID_NV)
-    iu = np.triu_indices(HUMANOID_NV, 1)
-    upper[:, iu[0], iu[1]] = np.nan
-    cases.append((f'B={SWEEP_BATCH} n=27 upper NaN', upper, 0))
+    for n in EDGE_N:
+      # a ragged last block, from an address 1 element past an allocation
+      # (not 16-byte aligned)
+      cases.append((f'B=4093 n={n} misaligned', random_spd(rng, 4093, n), 1))
+      # floored pivots: zero rows and columns (a massless dof) and zero
+      # matrices; each pivot the floor meets is exactly 0 in any order
+      sing = random_spd(rng, 512, n)
+      sing[0::3, 5, :] = sing[0::3, :, 5] = 0
+      sing[1::3, 0, :] = sing[1::3, :, 0] = 0
+      sing[1::3, -1, :] = sing[1::3, :, -1] = 0
+      sing[2::3] = 0
+      cases.append((f'B=512 n={n} singular', sing, 0))
+      # NaN above every diagonal: the function reads only the lower
+      # triangle
+      upper = random_spd(rng, SWEEP_BATCH, n)
+      iu = np.triu_indices(n, 1)
+      upper[:, iu[0], iu[1]] = np.nan
+      cases.append((f'B={SWEEP_BATCH} n={n} upper NaN', upper, 0))
     for label, H_np, offset in cases:
       batch, n = H_np.shape[:2]
       flat = torch.empty(offset + H_np.size, dtype=dtype, device=dev)

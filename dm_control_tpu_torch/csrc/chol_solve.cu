@@ -50,17 +50,46 @@
 // B = 4096 there are only about 8 warps an SM, too few to hide that
 // chain. Times in PERF.md.
 //
-// Shared memory, 29 <= n <= 64 (off the main path; the first version of
-// this kernel). One warp per system; the scaled matrix lives in shared
-// memory with a padded row stride n + 1, together with the scale and the
-// right-hand side. Lane l owns rows l and l + 32. The pivot is read by
-// every lane from shared memory, the rank-1 update runs row-parallel and
-// both substitutions are column-oriented; __syncwarp() separates the
-// dependent steps. It loads the whole matrix. Bound at n = 64, B = 4096,
-// float: operations, about 0.19 MFLOP a system, 11.7 us at 67 TFLOP/s
-// (the lower triangle, g and x are 36.2 MB, 10.8 us at 3.35 TB/s); it is
-// limited by shared-memory instructions, about n^3/3 loads and stores a
-// system.
+// Block rows, 29 <= n <= 64 (humanoid_CMU's n = 62). N = 64 >= n is a
+// compile-time constant; rows and columns n..N-1 are the identity's. One
+// system a block of N threads, one row a thread: thread t keeps row t
+// whole as r[0..N), indexed by compile-time constants only, its lower
+// triangle as stored and its upper part by symmetry (read from the lower
+// triangle's column t). No shuffle crosses warps, so pivot step j
+// publishes column j through shared memory (one store a row, two
+// alternating buffers, one barrier); every thread reads the pivot and the
+// column as broadcast 16-byte loads and updates every column k > j of its
+// row with one FMA (a_ik -= (a_ij / p) a_kj, one rsqrt a step). Updating
+// the upper part too keeps the control flow uniform, and leaves row i's
+// r[k > i] as the Schur complement c_ki at step i, L_ki L_ii: each thread
+// ends with its row and its column of L, so the back substitution is
+// column-oriented, one shuffle an unknown inside the warp that owns it
+// and one barrier a warp to hand the warp's unknowns to the warps below.
+// The forward substitution rides along the factor as the right-hand
+// side's column. A block stages its system with the register tile's
+// cp.async copies into room for N^2 elements, so that the load reads both
+// candidate addresses of each element and keeps one without a branch.
+//   Work at N = 64: 2,016 FMAs a row, 129 k a system: 3.2x the factor's
+// n^3 / 6 multiply-adds at n = 62. Bound at B = 4096, n = 62: bytes (the
+// lower triangle, g and x), 10.16 us in float and 20.32 us in double at
+// 3.35 TB/s; the operations the function needs (n^3 / 3 + 4 n^2 a system)
+// take 5.80 us at 67 TFLOP/s. ptxas: 127 registers in float, 176 in
+// double, no spills; an SM holds 8 blocks (16 warps) in float and 4 (8
+// warps) in double: 127 registers round to 128, 8 K a block of 64 threads,
+// 8 blocks in the 64 K register file; 176 registers are 5.5 K a warp, 2
+// warps in a scheduler's 16 K. Shared memory, 17.5 and 34.9 KB a block,
+// does not bound either (the driver sizes the carveout itself). Measured
+// on an H100 (PERF.md): 0.082 ms in float and 0.206 ms in double at (4096,
+// 62), 12 % and 10 % of the bound. Its code is about 5.9 k (float) and
+// 9.9 k (double) SASS instructions, FMAs 38 % and 25 % of them, run once
+// by each warp; at those times a scheduler issues about half an
+// instruction a cycle: the pivot chain of each step (barrier, load, rsqrt)
+// is not hidden by 4 (double: 2) warps a scheduler. Tried and slower
+// (PERF.md): two rows a thread in float (255 registers, with spills),
+// warps that leave the factor once their rows are done, a barrier for each
+// unknown of the back substitution, 4 x 16 register tiles a thread (fewer
+// shared-memory loads, many more instructions) and split mbarrier
+// arrive/wait to overlap each step's barrier with its update.
 
 #include <cuda_runtime.h>
 
@@ -78,14 +107,12 @@ struct Traits;
 template <>
 struct Traits<float> {
   __device__ __forceinline__ static float pivot_floor() { return 1e-6f; }
-  __device__ __forceinline__ static float root(float x) { return sqrtf(x); }
   __device__ __forceinline__ static float rroot(float x) { return rsqrtf(x); }
 };
 
 template <>
 struct Traits<double> {
   __device__ __forceinline__ static double pivot_floor() { return 1e-12; }
-  __device__ __forceinline__ static double root(double x) { return sqrt(x); }
   __device__ __forceinline__ static double rroot(double x) { return rsqrt(x); }
 };
 
@@ -288,101 +315,162 @@ int launch_reg(const T* H, const T* g, T* x, int batch, int n,
 }
 
 // ---------------------------------------------------------------------------
-// Shared-memory variant
+// Block-row variant
 // ---------------------------------------------------------------------------
 
-// elements of shared memory per system: A (n x (n + 1)), s and v
-__host__ __device__ inline int per_warp_elems(int n) {
-  return n * (n + 1) + 2 * n;
+// 16 bytes of shared memory (16-byte aligned) as V elements.
+__device__ __forceinline__ void load16(const float* p, float (&e)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  e[0] = f.x;
+  e[1] = f.y;
+  e[2] = f.z;
+  e[3] = f.w;
 }
 
-template <typename T>
-__global__ void chol_solve_smem_kernel(const T* __restrict__ H,
-                                       const T* __restrict__ g,
-                                       T* __restrict__ x, int batch, int n) {
+__device__ __forceinline__ void load16(const double* p, double (&e)[2]) {
+  const double2 d = *reinterpret_cast<const double2*>(p);
+  e[0] = d.x;
+  e[1] = d.y;
+}
+
+// Elements of shared memory of a block of the block rows N: the staged
+// system (room for N^2, so that every row and column address of the
+// load is inside it, plus the shift of a misaligned source), the scale
+// (N), the solution's blocks handed from warp to warp (N) and two column
+// buffers (N + V each: a column, then the right-hand side).
+template <typename T, int N>
+__host__ __device__ constexpr int rows_smem_elems() {
+  constexpr int V = 16 / sizeof(T);
+  return N * N + V + 2 * N + 2 * (N + V);
+}
+
+// 1 / sqrt(x) for the block rows' pivots (x >= the floor, never
+// subnormal): float takes the hardware's approximation without the
+// subnormal scaling that rsqrtf adds.
+__device__ __forceinline__ float pivot_rroot(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ double pivot_rroot(double x) { return rsqrt(x); }
+
+// The block rows (the note at the top): one system per block of N threads,
+// row t of the system in thread t's registers.
+template <typename T, int N>
+__global__ void __launch_bounds__(N)
+chol_solve_rows_kernel(const T* __restrict__ H, const T* __restrict__ g,
+                       T* __restrict__ x, int n) {
+  constexpr int V = 16 / sizeof(T), kBuf = N + V, W = N / 32;
+  static_assert(N % 32 == 0, "a system is whole warps");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  const long long b = static_cast<long long>(blockIdx.x) * warps + warp;
-  if (b >= batch) return;  // whole warp leaves together
+  T* stage = reinterpret_cast<T*>(smem_raw);
+  T* sbuf = stage + N * N + V;
+  T* zbuf = sbuf + N;
+  T* cbuf = zbuf + N;
+  const long long b = blockIdx.x;
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
+  const T* A = stage + stage_contiguous(H + b * n * n, n * n, stage);
+  __syncthreads();
 
-  const int ld = n + 1;
-  T* A = smem + static_cast<size_t>(warp) * per_warp_elems(n);
-  T* s = A + n * ld;
-  T* v = s + n;
-  const T* Hb = H + b * n * n;
-  const T* gb = g + b * n;
+  // row t's element k: A[t n + k] below the diagonal, A[k n + t] above;
+  // both addresses lie inside the stage for any t, k < N, so both are
+  // read and one is kept, without a branch. For an identity row (t >= n)
+  // and for the candidate not kept, the address may lie past the n^2
+  // staged elements, in slots nothing wrote: those values are read and
+  // thrown away.
+  const bool real = t < n;
+  T r[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const T lower = A[t * n + k], upper = A[k * n + t];
+    r[k] = real && k < n ? (k <= t ? lower : upper) : T(t == k);
+  }
+  const T s = real ? jacobi_scale(A[t * (n + 1)]) : T(1);
+  T v = real ? g[b * n + t] * s : T(0);
+  T rinv = T(1);
+  sbuf[t] = s;
+  __syncthreads();
+#pragma unroll
+  for (int k0 = 0; k0 < N; k0 += V) {
+    T e[V];
+    load16(sbuf + k0, e);
+#pragma unroll
+    for (int u = 0; u < V; ++u) r[k0 + u] = r[k0 + u] * s * e[u];
+  }
 
-  for (int idx = lane; idx < n * n; idx += 32) {
-    const int i = idx / n;
-    const int j = idx - i * n;
-    A[i * ld + j] = Hb[idx];
-  }
-  __syncwarp();
-  for (int i = lane; i < n; i += 32) {
-    const T si = jacobi_scale(A[i * ld + i]);
-    s[i] = si;
-    v[i] = gb[i] * si;
-  }
-  __syncwarp();
-  for (int idx = lane; idx < n * n; idx += 32) {
-    const int i = idx / n;
-    const int j = idx - i * n;
-    A[i * ld + j] = A[i * ld + j] * s[i] * s[j];
-  }
-  __syncwarp();
-
-  // right-looking Cholesky, L overwrites the lower triangle
+  // right-looking Cholesky with the forward substitution
   const T floor_ = Traits<T>::pivot_floor();
-  for (int j = 0; j < n; ++j) {
-    const T a = A[j * ld + j];
-    const T djj = Traits<T>::root(a > floor_ ? a : floor_);
-    __syncwarp();
-    for (int i = j + 1 + lane; i < n; i += 32) A[i * ld + j] /= djj;
-    if (lane == 0) A[j * ld + j] = djj;
-    __syncwarp();
-    for (int i = j + 1 + lane; i < n; i += 32) {
-      const T lij = A[i * ld + j];
-      for (int k = j + 1; k <= i; ++k) A[i * ld + k] -= lij * A[k * ld + j];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    T* c = cbuf + (j & 1) * kBuf;
+    c[t] = r[j];
+    if (t == j) c[N] = v;
+    __syncthreads();
+    const T piv = c[j];
+    const T vj = c[N];
+    const T p = piv > floor_ ? piv : floor_;
+    const T inv = pivot_rroot(p);
+    // a_ij / p below the pivot; the pivot's owner keeps L_jj
+    const bool below = t > j;
+    const T m = below ? r[j] * (inv * inv) : T(0);
+    r[j] = t == j ? p * inv : (below ? r[j] * inv : r[j]);
+    rinv = t == j ? inv : rinv;
+    v -= m * vj;
+#pragma unroll
+    for (int k0 = (j + 1) / V * V; k0 < N; k0 += V) {
+      T e[V];
+      load16(c + k0, e);
+#pragma unroll
+      for (int u = 0; u < V; ++u) {
+        if (k0 + u > j) r[k0 + u] -= m * e[u];
+      }
     }
-    __syncwarp();
   }
 
-  // forward substitution: L y = v (y overwrites v)
-  for (int i = 0; i < n; ++i) {
-    const T yi = v[i] / A[i * ld + i];
-    __syncwarp();
-    if (lane == 0) v[i] = yi;
-    for (int k = i + 1 + lane; k < n; k += 32) v[k] -= A[k * ld + i] * yi;
-    __syncwarp();
+  // back substitution L^T z = y, y = v / L_ii: row k < i subtracts
+  // L_ik z_i, its r[i] / L_kk; warp w owns unknowns 32 w..32 w + 31
+  v *= rinv;
+#pragma unroll
+  for (int w = W - 1; w >= 0; --w) {
+    if (warp == w) {
+#pragma unroll
+      for (int i = 32 * w + 31; i >= 32 * w; --i) {
+        const T z = __shfl_sync(0xffffffffu, v * rinv, i & 31);
+        const T left = v - r[i] * (rinv * z);
+        v = t == i ? z : (t < i ? left : v);
+      }
+    }
+    if (w > 0) {
+      if (warp == w) zbuf[t] = v;
+      __syncthreads();
+      if (warp < w) {
+#pragma unroll
+        for (int i0 = 32 * w; i0 < 32 * w + 32; i0 += V) {
+          T e[V];
+          load16(zbuf + i0, e);
+#pragma unroll
+          for (int u = 0; u < V; ++u) v -= r[i0 + u] * (rinv * e[u]);
+        }
+      }
+    }
   }
-  // back substitution: L^T z = y (z overwrites v)
-  for (int i = n - 1; i >= 0; --i) {
-    const T zi = v[i] / A[i * ld + i];
-    __syncwarp();
-    if (lane == 0) v[i] = zi;
-    for (int k = lane; k < i; k += 32) v[k] -= A[i * ld + k] * zi;
-    __syncwarp();
-  }
-  for (int i = lane; i < n; i += 32) x[b * n + i] = v[i] * s[i];
+  if (real) x[b * n + t] = v * s;
 }
 
-template <typename T>
-int launch_smem(const T* H, const T* g, T* x, int batch, int n,
+template <typename T, int N>
+int launch_rows(const T* H, const T* g, T* x, int batch, int n,
                 cudaStream_t stream) {
-  const int per_warp = per_warp_elems(n) * static_cast<int>(sizeof(T));
-  int warps = kSharedBudget / per_warp;
-  if (warps > kMaxWarpsPerBlock) warps = kMaxWarpsPerBlock;
-  const int blocks = (batch + warps - 1) / warps;
-  chol_solve_smem_kernel<T><<<blocks, warps * 32, warps * per_warp,
-                              stream>>>(H, g, x, batch, n);
+  constexpr int kBytes = rows_smem_elems<T, N>() * sizeof(T);
+  static_assert(kBytes <= 48 * 1024,
+                "above 48 KB a block needs the dynamic shared-memory opt-in");
+  chol_solve_rows_kernel<T, N><<<batch, N, kBytes, stream>>>(H, g, x, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-// register tile N of the register variant for n, or 0 for shared memory
-int variant(int n) { return n <= 28 ? 28 : 0; }
+// the variant's N for n: 28, the register tile; 64, the block rows
+int variant(int n) { return n <= 28 ? 28 : 64; }
 
 template <typename T>
 int launch(const void* H_, const void* g_, void* x_, int batch, int n,
@@ -394,7 +482,7 @@ int launch(const void* H_, const void* g_, void* x_, int batch, int n,
   T* x = static_cast<T*>(x_);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (variant(n) == 28) return launch_reg<T, 28>(H, g, x, batch, n, stream);
-  return launch_smem<T>(H, g, x, batch, n, stream);
+  return launch_rows<T, 64>(H, g, x, batch, n, stream);
 }
 
 }  // namespace
@@ -409,6 +497,7 @@ extern "C" int dmc_chol_solve_f64(const void* H, const void* g, void* x,
   return launch<double>(H, g, x, batch, n, stream);
 }
 
-// The variant the launcher takes for n: the register tile N (28), or 0
-// for the shared-memory variant.
+// The variant the launcher takes for n, as its N: 28 for the register
+// tile, 64 for the block rows.
 extern "C" int dmc_chol_solve_variant(int n) { return variant(n); }
+

@@ -88,13 +88,18 @@ def build_chol_solve():
   return lib_path, seconds, log
 
 
+# the library's variant numbers (each its N) and their names: the
+# register tile, several systems a warp; the block rows, one system a
+# block, a row a thread, columns through shared memory
+_VARIANTS = {28: 'registers N=28', 64: 'block rows N=64'}
+
+
 def chol_solve_variant(n: int) -> str:
   """The kernel variant the launcher takes for n, as the library reports
-  it: 'registers N=28' for n <= 28, else 'shared memory'."""
+  it: 'registers N=28' for n <= 28, else 'block rows N=64'."""
   if _LIB is None:
     build_chol_solve()
-  tile = _LIB.dmc_chol_solve_variant(n)
-  return f'registers N={tile}' if tile else 'shared memory'
+  return _VARIANTS[_LIB.dmc_chol_solve_variant(n)]
 
 
 def chol_solve_cuda(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

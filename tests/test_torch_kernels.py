@@ -74,14 +74,15 @@ def _check(H, g, dtype):
 
 
 # every variant and its edges: the register tile N = 28 (1 to 28) and
-# shared memory (29 to 64); and every n the suite's models give it (1 to
-# 4: pendulum, cartpole, acrobot, point_mass, lqr_2_1, two and three
-# poles, ball_in_cup; 6: lqr_6_2; 7: hopper; 9: cheetah and walker; 13:
-# fish; 22: quadruped walk and run; 27: humanoid; 28: quadruped fetch;
+# the block rows N = 64 (29 to 64; 63 and 64 leave one and no identity row);
+# and every n the suite's models give it (1 to 4: pendulum, cartpole,
+# acrobot, point_mass, lqr_2_1, two and three poles, ball_in_cup; 6:
+# lqr_6_2; 7: hopper; 9: cheetah and walker; 13: fish; 22: quadruped
+# walk and run; 27: humanoid; 28: quadruped fetch;
 # 62: humanoid_CMU)
 @pytest.mark.cuda
 @pytest.mark.parametrize('n', [1, 2, 3, 4, 5, 6, 7, 8, 9, 13, 16, 17, 22,
-                               27, 28, 29, 31, 32, 33, 62, 64])
+                               27, 28, 29, 30, 31, 32, 33, 48, 62, 63, 64])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_kernel_matches_plain(dtype, n):
   """The CUDA kernel against the plain version on the card."""
@@ -93,7 +94,7 @@ def test_kernel_matches_plain(dtype, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('n', [27, 64])
+@pytest.mark.parametrize('n', [27, 62, 64])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_kernel_floors_singular_pivots(dtype, n):
   """Zero rows and columns (a massless dof) and zero matrices: every pivot
@@ -110,7 +111,7 @@ def test_kernel_floors_singular_pivots(dtype, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('n', [27, 64])
+@pytest.mark.parametrize('n', [27, 62, 64])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_kernel_reads_only_the_lower_triangle(dtype, n):
   """NaN above every diagonal: like the plain version, the kernel reads
@@ -145,7 +146,7 @@ def test_kernel_takes_ragged_misaligned_batches(dtype, offset):
 def test_kernel_variant_by_n():
   _cuda()
   got = [cuda_kernels.chol_solve_variant(n) for n in (1, 27, 28, 29, 64)]
-  assert got == ['registers N=28'] * 3 + ['shared memory'] * 2
+  assert got == ['registers N=28'] * 3 + ['block rows N=64'] * 2
 
 
 @pytest.mark.parametrize('case', ['agrees', 'nan_mass', 'nan_newton',

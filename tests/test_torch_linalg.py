@@ -33,7 +33,7 @@ def random_spd(rng, batch, n, diag_lo=1e-6, diag_hi=1.0):
   return C * scale[..., :, None] * scale[..., None, :]
 
 
-@pytest.mark.parametrize('n', [1, 2, 8, 27, 32])
+@pytest.mark.parametrize('n', [1, 2, 8, 27, 29, 32, 62, 64])
 def test_plain_solve_matches_solve_psd(n):
   """float64, 1e-10 relative: the same factorization on both sides."""
   rng = np.random.default_rng(n)
