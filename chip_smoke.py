@@ -14,7 +14,8 @@ Phases, each of which raises on failure (exit code != 0):
   2. compare the kernel with its plain PyTorch version on the card at
      B = 4096, n in {1, 8, 16, 27, 28, 29, 31, 32, 33, 63, 64} (both
      variants and their edges), at every n the suite's models give it,
-     {1, 2, 3, 4, 6, 7, 9, 13, 22, 28, 62}, at B = 16384 and 4096, float32
+     {1, 2, 3, 4, 6, 7, 8, 9, 13, 17, 22, 28, 62}, at B = 16384 and 4096,
+     float32
      and float64, with diagonals spanning 1e-6..1, and, at n = 27 and 62,
      on a ragged batch at a misaligned address, a batch with singular
      (floored) pivots and a batch with NaN above the diagonals; time
@@ -22,7 +23,8 @@ Phases, each of which raises on failure (exit code != 0):
      the main paths' shapes (humanoid B = 4096, n = 27; cartpole
      B = 16384, n = 2; cheetah and walker B = 4096, n = 9;
      quadruped.fetch B = 4096, n = 28; quadruped walk and run B = 4096,
-     n = 22; humanoid_CMU B = 4096, n = 62, the block rows): the kernel
+     n = 22; humanoid_CMU B = 4096, n = 62, the block rows; swimmer6
+     B = 4096, n = 8): the kernel
      with the card held by a sleep kernel while the host queues the calls
      (the card's time) and back to back, the other two back to back;
   3. drive the main paths on the card through suite.load and
@@ -30,19 +32,28 @@ Phases, each of which raises on failure (exit code != 0):
      4096 envs x 5 Euler substeps, cartpole.swingup at 16384 envs x 1 RK4
      substep, cheetah.run at 4096 envs (its reset settles for 200 steps)
      walker.walk at 4096 envs x 10 substeps, quadruped.fetch at 4096
-     envs x 4 substeps and humanoid_CMU.run at 4096 envs x 10 substeps;
-     count the kernel's launches in each rollout, report the envs still
+     envs x 4 substeps, humanoid_CMU.run at 4096 envs x 10 substeps, and
+     swimmer.swimmer6 at 4096 envs x 15 substeps through
+     BatchedEnvironment.step, with a time limit of SWIMMER_EPISODE control
+     steps and staggered episode starts, so that every step auto-resets
+     some envs: those must draw new target positions on the card and the
+     others keep theirs; count the kernel's launches in each rollout,
+     report the envs still
      in contact after the reset, active contacts and live constraint rows
      per env, check the outputs and hold the kernel against its plain
      version on every system one more step of each path's end state
      solves (mass matrices and the Euler update at TOL; Newton Hessians
      by backward error, and at TOL where well conditioned); for
-     quadruped.fetch and humanoid_CMU.run count the CUDA kernel launches
-     of one substep and of its MPR group alone (torch.profiler);
+     quadruped.fetch, humanoid_CMU.run and swimmer.swimmer6 count the CUDA
+     kernel launches of one substep and of its MPR groups alone (none in
+     swimmer6) (torch.profiler);
   4. check one control step on the card against the same step on the CPU
      (where the solve is the plain version) at 4 envs in float64, for
      humanoid, the six domains of the RK4/energy slice, quadruped walk
-     and fetch, humanoid_CMU, ball_in_cup, point_mass, fish and lqr;
+     and fetch, humanoid_CMU, ball_in_cup, point_mass, fish, lqr, and the
+     tasks that draw their model each episode (reacher easy and hard,
+     point_mass.hard, fish.swim, swimmer6 and swimmer15), whose drawn
+     leaves go from the card to the CPU with the state;
   5. read hopper.hop's touch observation over control steps on the card:
      it must see contact forces and change from step to step (the
      acceleration-stage sensors come from the last substep's solve).
@@ -60,20 +71,26 @@ import numpy as np
 import torch
 
 ROLLOUT_STEPS = 20
-# (domain, task, envs, substeps, nv) of each main path
-PATHS = (('humanoid', 'run', 4096, 5, 27),
-         ('cartpole', 'swingup', 16384, 1, 2),
-         ('cheetah', 'run', 4096, 1, 9),
-         ('walker', 'walk', 4096, 10, 9),
-         ('quadruped', 'fetch', 4096, 4, 28),
-         ('humanoid_CMU', 'run', 4096, 10, 62))
+# control steps of a swimmer episode on its path (its time limit)
+SWIMMER_EPISODE = 8
+# (domain, task, envs, substeps, nv, episode) of each main path; a path
+# with an episode length runs BatchedEnvironment.step with auto-resets,
+# its envs staggered (env i starts at step i % episode), the others
+# rollout_random
+PATHS = (('humanoid', 'run', 4096, 5, 27, None),
+         ('cartpole', 'swingup', 16384, 1, 2, None),
+         ('cheetah', 'run', 4096, 1, 9, None),
+         ('walker', 'walk', 4096, 10, 9, None),
+         ('quadruped', 'fetch', 4096, 4, 28, None),
+         ('humanoid_CMU', 'run', 4096, 10, 62, None),
+         ('swimmer', 'swimmer6', 4096, 15, 8, SWIMMER_EPISODE))
 SWEEP_BATCH = 4096
 SWEEP_N = (1, 8, 16, 27, 28, 29, 31, 32, 33, 63, 64)
 # every n the suite's ported models give the kernel: pendulum, cartpole,
-# acrobot, point_mass and lqr_2_1, two and three poles, ball_in_cup,
-# lqr_6_2, hopper, cheetah and walker, fish, quadruped walk and run,
-# quadruped fetch, humanoid_CMU
-SUITE_N = (1, 2, 3, 4, 6, 7, 9, 13, 22, 28, 62)
+# acrobot, point_mass, reacher and lqr_2_1, two and three poles,
+# ball_in_cup, lqr_6_2, hopper, swimmer6, cheetah and walker, fish,
+# swimmer15, quadruped walk and run, quadruped fetch, humanoid_CMU
+SUITE_N = (1, 2, 3, 4, 6, 7, 8, 9, 13, 17, 22, 28, 62)
 SUITE_BATCHES = (16384, 4096)
 HUMANOID_NV = 27
 # the n of the misaligned, singular and upper-NaN cases: humanoid's
@@ -81,9 +98,9 @@ HUMANOID_NV = 27
 EDGE_N = (HUMANOID_NV, 62)
 # (batch, n) timed: humanoid's, cartpole's, cheetah's and walker's,
 # quadruped fetch's, quadruped walk's and run's, humanoid_CMU's (the
-# block rows)
+# block rows), swimmer6's
 TIMED_SHAPES = ((4096, 27), (16384, 2), (4096, 9), (4096, 28), (4096, 22),
-                (4096, 62))
+                (4096, 62), (4096, 8))
 # the tasks whose control step is held card against CPU, with the load
 # arguments beyond device and dtype (lqr: the seed of its stiffnesses)
 STEP_DOMAINS = (('humanoid', 'run', {}), ('cartpole', 'swingup', {}),
@@ -93,7 +110,10 @@ STEP_DOMAINS = (('humanoid', 'run', {}), ('cartpole', 'swingup', {}),
                 ('quadruped', 'fetch', {}), ('humanoid_CMU', 'run', {}),
                 ('ball_in_cup', 'catch', {}), ('point_mass', 'easy', {}),
                 ('fish', 'upright', {}), ('lqr', 'lqr_2_1', {'random': 0}),
-                ('lqr', 'lqr_6_2', {'random': 0}))
+                ('lqr', 'lqr_6_2', {'random': 0}), ('reacher', 'easy', {}),
+                ('reacher', 'hard', {}), ('point_mass', 'hard', {}),
+                ('fish', 'swim', {}), ('swimmer', 'swimmer6', {}),
+                ('swimmer', 'swimmer15', {}))
 # envs and control steps of the phase that reads hopper's touch on the card
 TOUCH_ENVS, TOUCH_STEPS = 256, 25
 # relative error bounds, kernel vs plain version (max over each system of
@@ -430,11 +450,41 @@ def hold_systems(name, systems, solve):
   return res
 
 
-def drive_path(domain, task, envs, n_sub, nv, card, timing):
+def step_with_resets(benv, name):
+  """ROLLOUT_STEPS control steps of BatchedEnvironment.step with uniform
+  random actions in [-1, 1). At each step the envs that finish must draw
+  new model leaves and every other env keep its own bit for bit, and
+  every env must have been reset at least once by the end. Returns
+  (Data, summed rewards (B,), resets per env (B,))."""
+  envs, nu, dev = benv.batch_size, benv.model.nu, benv.model.device
+  gen = torch.Generator(device=dev).manual_seed(7)
+  total = torch.zeros(envs, device=dev)
+  resets = torch.zeros(envs, dtype=torch.int64, device=dev)
+  wrong = torch.zeros((), dtype=torch.int64, device=dev)
+  for _ in range(ROLLOUT_STEPS):
+    before = {k: v.clone() for k, v in benv.leaves.items()}
+    actions = torch.rand((envs, nu), generator=gen, device=dev) * 2 - 1
+    _, reward, done = benv.step(actions)
+    total += reward
+    resets += done
+    for k, v in benv.leaves.items():
+      wrong += ((v != before[k]).flatten(1).any(-1) != done).sum()
+  if not benv.leaves:
+    raise RuntimeError(f'{name}: the batch holds no drawn leaves')
+  if int(wrong):
+    raise RuntimeError(f'{name}: {int(wrong)} env-steps where a reset env '
+                       'kept its leaves or a running env changed them')
+  if int(resets.min()) == 0:
+    raise RuntimeError(f'{name}: some envs were never reset')
+  return benv.data, total, resets
+
+
+def drive_path(domain, task, envs, n_sub, nv, episode, card, timing):
   """Builds `domain.task` on the card (float32), resets `envs` envs and
-  runs rollout_random for ROLLOUT_STEPS control steps; checks the outputs
-  and the kernel on the systems the path's own state gives it. Returns
-  the path's numbers for the kernels line."""
+  runs ROLLOUT_STEPS control steps: rollout_random, or with an episode
+  length, BatchedEnvironment.step with auto-resets (step_with_resets);
+  checks the outputs and the kernel on the systems the path's own state
+  gives it. Returns the path's numbers for the kernels line."""
   from dm_control_tpu_torch import suite
   from dm_control_tpu_torch.models import constants
   from dm_control_tpu_torch.ops import constraint
@@ -454,7 +504,9 @@ def drive_path(domain, task, envs, n_sub, nv, card, timing):
   if env.n_sub_steps != n_sub or m.nv != nv:
     raise RuntimeError(f'unexpected {name} configuration: '
                        f'{env.n_sub_steps} substeps, nv {m.nv}')
-  benv = BatchedEnvironment(m, env.task, batch_size=envs,
+  limit = (float('inf') if episode is None else
+           episode * n_sub * float(m.opt.timestep))
+  benv = BatchedEnvironment(m, env.task, batch_size=envs, time_limit=limit,
                             n_sub_steps=env.n_sub_steps, seed=0)
   cuda_kernels.chol_solve_cuda.launches = 0
   t0 = time.perf_counter()
@@ -474,16 +526,34 @@ def drive_path(domain, task, envs, n_sub, nv, card, timing):
         f'{m.nefc_max} constraint rows, {m.ncon_sel} contact slots, '
         f'n_sub_steps {env.n_sub_steps}, integrator '
         f'{constants.IntegratorType(int(m.opt.integrator)).name}', flush=True)
+  extra = {}
+  if episode is not None:
+    benv.set_state(benv.state, steps=torch.arange(envs) % episode)
   cuda_kernels.chol_solve_cuda.launches = 0
   t0 = time.perf_counter()
-  data, total = benv.rollout_random(ROLLOUT_STEPS)
+  if episode is None:
+    data, total = benv.rollout_random(ROLLOUT_STEPS)
+  else:
+    data, total, resets = step_with_resets(benv, name)
   torch.cuda.synchronize()
   wall = time.perf_counter() - t0
   launches = cuda_kernels.chol_solve_cuda.launches
+  if episode is not None:
+    extra = dict(episode_steps=episode, resets=int(resets.sum()),
+                 resets_min=int(resets.min()))
+    print(f'[3] {name}: BatchedEnvironment.step with auto-resets every '
+          f'{episode} control steps, envs staggered: {extra["resets"]} '
+          f'env resets in {ROLLOUT_STEPS} steps, at least '
+          f'{extra["resets_min"]} an env; each reset env drew new leaves '
+          f'({", ".join(benv.leaves)}) on the card and every other env kept '
+          'its own', flush=True)
+  bm = benv.batch_model
   diverged = data.divergence
   rate = envs * ROLLOUT_STEPS / wall
   reward = total.mean().item() / ROLLOUT_STEPS
-  print(f'[3] {name} rollout_random({ROLLOUT_STEPS}) x {envs} envs: '
+  how = (f'rollout_random({ROLLOUT_STEPS})' if episode is None else
+         f'{ROLLOUT_STEPS} x step')
+  print(f'[3] {name} {how} x {envs} envs: '
         f'{wall:.3f} s, {rate:.1f} env-steps/s (smoke reading, first '
         f'rollout, eager; {card}); chol_solve launches {launches} '
         f'({launches / (ROLLOUT_STEPS * n_sub):.2f} a substep); diverged '
@@ -503,7 +573,7 @@ def drive_path(domain, task, envs, n_sub, nv, card, timing):
              f'B={envs} n={nv})')
   con = data.contact
   ncon = con.active.sum(dim=-1).float()
-  live_rows = (constraint.make_rows(m, data).slot_active > 0).sum(
+  live_rows = (constraint.make_rows(bm, data).slot_active > 0).sum(
       dim=-1).float()
   overflow = int(con.overflow.sum())
   print(f'[3] {name}: {step_ms:.1f} ms a control step; the kernel: {share}; '
@@ -512,14 +582,13 @@ def drive_path(domain, task, envs, n_sub, nv, card, timing):
         f'max {int(live_rows.max())} of {m.nefc_max}; contact.overflow in '
         f'{overflow} '
         f'envs', flush=True)
-  extra = {}
-  if domain in ('quadruped', 'humanoid_CMU'):
-    (sub_k, sub_c), (mpr_k, mpr_c), n_groups = mpr_launches(m, data)
+  if domain in ('quadruped', 'humanoid_CMU', 'swimmer'):
+    (sub_k, sub_c), (mpr_k, mpr_c), n_groups = mpr_launches(bm, data)
     print(f'[3] {name}: torch.profiler, one substep of {envs} envs: '
           f'{sub_k} CUDA kernels ({sub_c} launch calls); its {n_groups} MPR '
           f'group(s) alone: {mpr_k} kernels ({mpr_c} launch calls); the '
           f'substep without them: {sub_k - mpr_k} kernels', flush=True)
-    extra = dict(substep_kernels=sub_k, mpr_kernels=mpr_k)
+    extra.update(substep_kernels=sub_k, mpr_kernels=mpr_k)
   if not torch.isfinite(total).all():
     raise RuntimeError(f'{name}: non-finite rewards')
   if total.shape != (envs,) or not ((total >= 0) &
@@ -527,13 +596,13 @@ def drive_path(domain, task, envs, n_sub, nv, card, timing):
     raise RuntimeError(f'{name}: rewards outside [0, steps]')
   live = ~diverged
   outputs = dict(qpos=data.qpos, qvel=data.qvel, **env.task.get_observation(
-      m, data))
+      bm, data))
   if m.opt.enableflags & constants.EnableBit.ENERGY:
     outputs['energy'] = data.energy
   for k, v in outputs.items():
     if not torch.isfinite(v[live]).all():
       raise RuntimeError(f'{name}: non-finite {k} outside diverged envs')
-  own = hold_systems(name, recorded_systems(m, data),
+  own = hold_systems(name, recorded_systems(bm, data),
                      cuda_kernels.chol_solve_cuda)
   print(f'[3] {name}: finite: {", ".join(outputs)}', flush=True)
   return dict(envs=envs, substeps=n_sub, build_s=build_s, reset_s=reset_s,
@@ -548,8 +617,8 @@ def drive_path(domain, task, envs, n_sub, nv, card, timing):
 
 def step_card_vs_cpu(domain, task, kwargs):
   """One control step of 4 envs, float64, on the card and on the CPU from
-  the card's reset state: qpos, qvel (relative to max(1, |x|)),
-  observations and reward within STEP_TOL."""
+  the card's reset state and drawn model leaves: qpos, qvel (relative to
+  max(1, |x|)), observations and reward within STEP_TOL."""
   from dm_control_tpu_torch import suite
   from dm_control_tpu_torch.parallel import BatchedEnvironment
   env64 = suite.load(domain, task, device='cuda', dtype=torch.float64,
@@ -563,6 +632,8 @@ def step_card_vs_cpu(domain, task, kwargs):
                              n_sub_steps=n_sub, seed=3)
   b_gpu.reset()
   state = {k: v.cpu() for k, v in b_gpu.state.items()}
+  b_cpu.set_state(state, leaves={k: v.cpu() for k, v in
+                                 b_gpu.leaves.items()})
   actions = torch.rand((4, envc.model.nu), dtype=torch.float64,
                        generator=torch.Generator().manual_seed(5)) * 2 - 1
   s_gpu, o_gpu, r_gpu, _, _ = b_gpu.step_core(
@@ -735,9 +806,9 @@ def main():
 
   # ---- phase 3 ----
   paths = {}
-  for domain, task, envs, n_sub, nv in PATHS:
+  for domain, task, envs, n_sub, nv, episode in PATHS:
     paths[f'{domain}.{task}'] = drive_path(domain, task, envs, n_sub, nv,
-                                           card, timing)
+                                           episode, card, timing)
 
   # ---- phase 4 ----
   for domain, task, kwargs in STEP_DOMAINS:

@@ -3,8 +3,10 @@
 Counterpart of dm_control_tpu/models/types.py with the same field names.
 Static structure (sizes, tree topology, joint types, slot layouts) stays as
 Python ints and tuples. Parameters are tensors on the model's device in its
-float dtype, shared by every environment of a batch. Every Data tensor has
-a leading batch axis: `(B, ...)`.
+float dtype, shared by every environment of a batch, except the leaves a
+task may draw anew each episode (`RANDOMIZED`): those may carry a leading
+batch axis, one row an environment (`Model.with_leaves`). Every Data
+tensor has a leading batch axis: `(B, ...)`.
 
 `model_from_numpy` and `data_from_numpy` build these from plain numpy
 arrays. The builder uses the first; tests use both to hand the JAX
@@ -31,6 +33,14 @@ def _to_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
   if not np.issubdtype(a.dtype, np.floating):
     raise TypeError(f'not a numeric array: {a.dtype}')
   return torch.as_tensor(a.astype(np.float64), device=device).to(dtype)
+
+
+# The leaves that a task may draw for each environment (reacher, fish.swim
+# and swimmer move a target geom, point_mass.hard redraws its tendon
+# coefficients). Unbatched by default: (ngeom, 3), (nsite, 3), (nwrap,);
+# per environment (B, ngeom, 3), (B, nsite, 3), (B, nwrap). Only
+# `smooth.kinematics` and `smooth.tendon` read them.
+RANDOMIZED = ('geom_pos', 'site_pos', 'wrap_prm')
 
 
 def _meta(default=None):
@@ -256,6 +266,15 @@ class Model(_Base):
     updates.setdefault('consts', {})
     return dataclasses.replace(self, **updates)
 
+  def with_leaves(self, **leaves) -> 'Model':
+    """This model with some RANDOMIZED leaves replaced, e.g. by one row an
+    environment. The memo (schedules, plans, index tensors) is shared,
+    not rebuilt: nothing in it reads those leaves."""
+    bad = set(leaves) - set(RANDOMIZED)
+    if bad:
+      raise ValueError(f'not a per-env leaf: {sorted(bad)}')
+    return dataclasses.replace(self, consts=self.consts, **leaves)
+
   @property
   def device(self) -> torch.device:
     return self.qpos0.device
@@ -284,6 +303,14 @@ class Model(_Base):
     if key not in self.consts:
       self.consts[key] = make()
     return self.consts[key]
+
+
+def put_envs(leaves: Dict[str, torch.Tensor], idx: torch.Tensor,
+             rows: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+  """Per-env leaves with `rows` ({name: (len(idx), ...)}) written at the
+  environments `idx`; the other rows are kept as they are."""
+  return {k: v.index_put((idx,), rows[k].to(v.dtype))
+          for k, v in leaves.items()}
 
 
 @dataclasses.dataclass(frozen=True)

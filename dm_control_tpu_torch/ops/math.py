@@ -67,6 +67,28 @@ def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
   return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
+  """3x3 rotation matrix -> unit quaternion (w, x, y, z), branch-free:
+  Shepperd's four candidates, the one of the largest score taken."""
+  m00, m11, m22 = m[..., 0, 0], m[..., 1, 1], m[..., 2, 2]
+  tr = m00 + m11 + m22
+  d21, d02, d10 = (m[..., 2, 1] - m[..., 1, 2], m[..., 0, 2] - m[..., 2, 0],
+                   m[..., 1, 0] - m[..., 0, 1])
+  s01, s02, s12 = (m[..., 0, 1] + m[..., 1, 0], m[..., 0, 2] + m[..., 2, 0],
+                   m[..., 1, 2] + m[..., 2, 1])
+  scores = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                        1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], -1)
+  cands = torch.stack([
+      torch.stack([scores[..., 0], d21, d02, d10], -1),
+      torch.stack([d21, scores[..., 1], s01, s02], -1),
+      torch.stack([d02, s01, scores[..., 2], s12], -1),
+      torch.stack([d10, s02, s12, scores[..., 3]], -1)], -2)
+  best = torch.argmax(scores, dim=-1)
+  q = torch.gather(cands, -2, best[..., None, None].expand(
+      best.shape + (1, 4)))[..., 0, :]
+  return normalize_quat(q)
+
+
 def normalize_quat(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
   return q / torch.clamp(norm(q, keepdim=True), min=eps)
 

@@ -1,9 +1,11 @@
 """Sensors of the ported slice, batched.
 
 Port of dm_control_tpu/ops/sensor.py for the sensor types of the ported
-domains: subtreecom, subtreelinvel, velocimeter and gyro
-(position/velocity stage), touch, accelerometer, force and torque
-(acceleration stage). Any other type raises NotImplementedError.
+domains: subtreecom, subtreelinvel, velocimeter, gyro and the frame group
+(framepos, framequat, framexaxis, frameyaxis, framezaxis, framelinvel,
+frameangvel) in the position/velocity stage; touch, accelerometer, force
+and torque in the acceleration stage. Any other type raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -16,8 +18,15 @@ from dm_control_tpu_torch.ops import math as mops
 from dm_control_tpu_torch.ops import smooth
 
 _S = constants.SensorType
+_OBJ = constants.ObjType
 
-_PV_STAGE = (_S.SUBTREECOM, _S.SUBTREELINVEL, _S.VELOCIMETER, _S.GYRO)
+# the frame sensors read a site's, a geom's or a body's frame in world
+# coordinates; as in the JAX package, objtype body and xbody both mean the
+# body frame (xpos, xmat) and reftype is not read
+_FRAME = (_S.FRAMEPOS, _S.FRAMEQUAT, _S.FRAMEXAXIS, _S.FRAMEYAXIS,
+          _S.FRAMEZAXIS, _S.FRAMELINVEL, _S.FRAMEANGVEL)
+_PV_STAGE = (_S.SUBTREECOM, _S.SUBTREELINVEL, _S.VELOCIMETER,
+             _S.GYRO) + _FRAME
 _ACC_STAGE = (_S.TOUCH, _S.ACCELEROMETER, _S.FORCE, _S.TORQUE)
 
 
@@ -74,6 +83,27 @@ def _site_zone(m: Model, d: Data, siteid: int, point):
   return torch.all(torch.abs(local) <= torch.clamp(size, min=1e-12), dim=-1)
 
 
+def _frame_sensor(m: Model, d: Data, st: int, objtype: int, oid: int):
+  """(B, 3) or (B, 4): one frame sensor's value."""
+  if objtype == _OBJ.SITE:
+    pos, mat, body = (d.site_xpos[:, oid], d.site_xmat[:, oid],
+                      m.site_bodyid[oid])
+  elif objtype == _OBJ.GEOM:
+    pos, mat, body = (d.geom_xpos[:, oid], d.geom_xmat[:, oid],
+                      m.geom_bodyid[oid])
+  else:  # body, xbody
+    pos, mat, body = d.xpos[:, oid], d.xmat[:, oid], oid
+  if st == _S.FRAMEPOS:
+    return pos
+  if st == _S.FRAMEQUAT:
+    return (mops.mat_to_quat(mat) if objtype in (_OBJ.SITE, _OBJ.GEOM)
+            else d.xquat[:, oid])
+  if st in (_S.FRAMEXAXIS, _S.FRAMEYAXIS, _S.FRAMEZAXIS):
+    return mat[..., st - _S.FRAMEXAXIS]
+  vel = smooth.object_velocity(m, d, pos, body)
+  return vel[:, 3:] if st == _S.FRAMELINVEL else vel[:, :3]
+
+
 def has_acc_stage(m: Model) -> bool:
   """Whether the model has a sensor of the acceleration stage."""
   return m.memo('has_acc_stage', lambda: any(
@@ -119,6 +149,8 @@ def sensors(m: Model, d: Data, stages: str = 'all') -> Data:
                                    m.site_bodyid[oid])
       v = vel[:, 3:] if st == _S.VELOCIMETER else vel[:, :3]
       val = torch.einsum('Bji,Bj->Bi', d.site_xmat[:, oid], v)
+    elif st in _FRAME:
+      val = _frame_sensor(m, d, st, m.sensor_objtype[i], oid)
     elif st == _S.TOUCH:
       body = m.site_bodyid[oid]
       if m.ncon_sel:

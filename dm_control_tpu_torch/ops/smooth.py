@@ -1,7 +1,10 @@
 """Smooth (unconstrained) dynamics: FK, com frames, CRB, RNE, passive.
 
 Port of dm_control_tpu/ops/smooth.py with an explicit batch axis: every
-Data tensor is (B, ...), Model tensors are shared by the batch. Tree
+Data tensor is (B, ...), Model tensors are shared by the batch, but for
+the per-env leaves of `types.RANDOMIZED` (geom_pos and site_pos, read by
+`kinematics`, and wrap_prm, read by `tendon`), which may carry the batch
+axis too. Tree
 accumulations stay dense products against the model's 0/1 structure masks,
 and forward kinematics sweeps the tree level by level.
 """
@@ -60,7 +63,10 @@ def _fk_schedule(m: Model):
 
 
 def kinematics(m: Model, d: Data) -> Data:
-  """qpos -> body, geom and site frames and joint anchors/axes."""
+  """qpos -> body, geom and site frames and joint anchors/axes.
+
+  geom_pos and site_pos may be per env, (B, ngeom, 3) and (B, nsite, 3):
+  they broadcast against the (B, ngeom) and (B, nsite) frames."""
   qpos = d.qpos
   B, dtype, dev = qpos.shape[0], qpos.dtype, qpos.device
   xpos = torch.zeros((B, m.nbody, 3), dtype=dtype, device=dev)
@@ -276,7 +282,10 @@ def object_velocity(m: Model, d: Data, point: torch.Tensor, bodyid: int):
 
 
 def tendon(m: Model, d: Data) -> Data:
-  """Tendon lengths and moment arms (fixed and straight spatial paths)."""
+  """Tendon lengths and moment arms (fixed and straight spatial paths).
+
+  wrap_prm may be per env, (B, nwrap): a fixed tendon's coefficients are
+  then (B,) and enter both its length and its row of ten_J."""
   if not m.ntendon:
     return d
   B, dtype, dev = d.qpos.shape[0], d.qpos.dtype, d.qpos.device
@@ -289,7 +298,7 @@ def tendon(m: Model, d: Data) -> Data:
     if all(w == constants.WrapType.JOINT for w in wtypes):
       for k in range(num):
         jid = m.wrap_objid[adr + k]
-        coef = m.wrap_prm[adr + k]
+        coef = m.wrap_prm[..., adr + k]
         length = length + coef * d.qpos[:, m.jnt_qposadr[jid]]
         j[:, m.jnt_dofadr[jid]] += coef
     else:

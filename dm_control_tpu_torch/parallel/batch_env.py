@@ -2,8 +2,13 @@
 
 Port of dm_control_tpu/parallel/batch_env.py without the mesh: one Model,
 a batch of slim states (forward.SLIM_STATE_FIELDS) and a Python loop over
-control steps. Each control step runs `n_sub_steps` batched physics steps,
-then one position/velocity refresh for observations and rewards. As in
+control steps. A task that changes its model each episode
+(`Task.randomize_model`) gets one row an env of the leaves it draws, drawn
+at reset and again at each env's auto-reset, before that env's initial
+state, as the unbatched JAX environment draws them
+(dm_control_tpu/rl/control.py:146-151; the JAX batched path never draws).
+Each control step runs `n_sub_steps` batched physics steps, then one
+position/velocity refresh for observations and rewards. As in
 MuJoCo's `Physics.step` (mj_step2 then mj_step1 each substep), the
 position- and velocity-stage sensors are of the new state and the
 acceleration-stage sensors (touch, accelerometer, force, torque) of the
@@ -32,7 +37,8 @@ def _where(mask: torch.Tensor, new: dict, old: dict) -> dict:
 
 
 class BatchedEnvironment:
-  """A batch of identical environments stepped together.
+  """A batch of environments of one model stepped together; a task that
+  randomizes its model gives each env its own drawn leaves.
 
   When an episode ends (task termination, time limit or physics
   divergence) `step` re-initializes that env in the same call; its
@@ -57,6 +63,8 @@ class BatchedEnvironment:
     self._template = types.make_data(model, batch_size)
     self._state = None
     self._steps = None
+    self._leaves = {}
+    self._batch_model = model
 
   # ------------------------------------------------------------------
   def _inflate(self, state: dict) -> types.Data:
@@ -64,18 +72,27 @@ class BatchedEnvironment:
                 if state['qpos'].shape[0] == self.batch_size else None)
     return forward_ops.inflate(self.model, state, template)
 
-  def _init(self, n: int) -> types.Data:
-    """Fresh, fully forward-computed Data for n new episodes."""
-    data = types.make_data(self.model, n)
-    data = self.task.initialize_episode(self.model, data, self._gen)
-    return forward_ops.forward(self.model, data)
+  def _init(self, n: int):
+    """n new episodes: their drawn model leaves ({} for a task that draws
+    none), the model with them, and its fresh, fully forward-computed
+    Data. The leaves are drawn before the initial states (the JAX order)."""
+    leaves = self.task.randomize_model(self.model, n, self._gen)
+    m = self.model.with_leaves(**leaves) if leaves else self.model
+    data = types.make_data(m, n)
+    data = self.task.initialize_episode(m, data, self._gen)
+    return leaves, m, forward_ops.forward(m, data)
+
+  def _set_leaves(self, leaves: dict):
+    self._leaves = dict(leaves)
+    self._batch_model = (self.model.with_leaves(**leaves) if leaves
+                         else self.model)
 
   def step_core(self, state: dict, actions: torch.Tensor):
     """One control step of the whole batch, without resets.
 
     Returns (state, obs, reward, termination, diverged).
     """
-    m, task = self.model, self.task
+    m, task = self._batch_model, self.task
     d = task.before_step(m, self._inflate(state), actions)
     state = forward_ops.slim_state(d)
     acc = sensor_ops.has_acc_stage(m)
@@ -101,23 +118,41 @@ class BatchedEnvironment:
   def state(self) -> dict:
     return self._state
 
-  def set_state(self, state: dict):
-    """Replace the batch's slim state (and restart its step counts)."""
+  @property
+  def leaves(self) -> dict:
+    """The drawn model leaves of the batch, {name: (B, ...)}; {} while the
+    batch steps with the compiled model."""
+    return self._leaves
+
+  @property
+  def batch_model(self) -> types.Model:
+    """The model the batch steps with: `model` with `leaves`."""
+    return self._batch_model
+
+  def set_state(self, state: dict, leaves: dict = None,
+                steps: torch.Tensor = None):
+    """Replace the batch's slim state; with `leaves`, its drawn model
+    leaves too; with `steps` ((B,) ints), the control steps each env's
+    episode has run, for the time limit (default: 0 for every env)."""
     self._state = dict(state)
-    self._steps = torch.zeros(self.batch_size, dtype=torch.int64,
-                              device=self.model.device)
+    if leaves is not None:
+      self._set_leaves(leaves)
+    if steps is None:
+      steps = torch.zeros(self.batch_size, dtype=torch.int64)
+    self._steps = torch.as_tensor(steps, dtype=torch.int64).to(
+        self.model.device, copy=True)
 
   @property
   def data(self) -> types.Data:
     """Position/velocity-fresh Data of the current state."""
     if self._state is None:
       return None
-    return forward_ops.fwd_pv(self.model, self._inflate(self._state))
+    return forward_ops.fwd_pv(self._batch_model, self._inflate(self._state))
 
   def reset(self):
-    data = self._init(self.batch_size)
-    obs = self.task.get_observation(self.model, data)
-    self.set_state(forward_ops.slim_state(data))
+    leaves, m, data = self._init(self.batch_size)
+    obs = self.task.get_observation(m, data)
+    self.set_state(forward_ops.slim_state(data), leaves=leaves)
     return obs
 
   def step(self, actions: torch.Tensor):
@@ -127,14 +162,21 @@ class BatchedEnvironment:
     done = term | (steps >= self._step_limit) | diverged
     idx = torch.nonzero(done)[:, 0]
     if len(idx):
-      fresh = self._init(len(idx))
+      leaves, m, fresh = self._init(len(idx))
       fresh_state = forward_ops.slim_state(fresh)
-      fresh_obs = self.task.get_observation(self.model, fresh)
+      fresh_obs = self.task.get_observation(m, fresh)
       state = {k: v.index_put((idx,), fresh_state[k].to(v.dtype))
                for k, v in state.items()}
       obs = type(obs)((k, v.index_put((idx,), fresh_obs[k].to(v.dtype)))
                       for k, v in obs.items())
       steps = torch.where(done, torch.zeros_like(steps), steps)
+      if leaves:
+        # only the done envs draw; the others keep their leaves
+        old = self._leaves or {
+            k: getattr(self.model, k).expand(
+                (self.batch_size,) + v.shape[1:]).clone()
+            for k, v in leaves.items()}
+        self._set_leaves(types.put_envs(old, idx, leaves))
     self._state, self._steps = state, steps
     return obs, reward, done
 

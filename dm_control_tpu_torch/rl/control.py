@@ -20,6 +20,13 @@ from dm_control_tpu_torch.models import types
 class Task(abc.ABC):
   """A batched task."""
 
+  def randomize_model(self, model: types.Model, n: int,
+                      generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """The model leaves of n new episodes, drawn before their initial
+    states: {name: (n, ...)}, names from `types.RANDOMIZED`. The default
+    draws nothing ({}), and the batch keeps the compiled model."""
+    return {}
+
   @abc.abstractmethod
   def initialize_episode(self, model: types.Model, data: types.Data,
                          generator: torch.Generator) -> types.Data:

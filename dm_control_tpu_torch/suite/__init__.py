@@ -6,7 +6,7 @@ import importlib
 
 _DOMAINS = ('acrobot', 'ball_in_cup', 'cartpole', 'cheetah', 'fish', 'hopper',
             'humanoid', 'humanoid_CMU', 'lqr', 'pendulum', 'point_mass',
-            'quadruped', 'walker')
+            'quadruped', 'reacher', 'swimmer', 'walker')
 
 
 def load(domain_name: str, task_name: str, **task_kwargs):

@@ -504,10 +504,16 @@ def test_task_loads_initializes_and_steps(domain, task):
 @pytest.mark.parametrize('domain,task', [('point_mass', 'hard'),
                                          ('fish', 'swim')])
 def test_model_randomizing_tasks_are_not_registered(domain, task):
-  """point_mass.hard and fish.swim change the model each episode, which
-  the port cannot do yet: they are not served under their names."""
-  with pytest.raises(KeyError):
-    suite.load(domain, task, device='cpu')
+  """point_mass.hard and fish.swim change the model each episode:
+  suite.load serves them, and two envs of one batch draw different
+  leaves (`tests/test_torch_randomize.py` holds them against the JAX
+  package)."""
+  env = suite.load(domain, task, device='cpu')
+  benv = BatchedEnvironment(env.model, env.task, batch_size=2,
+                            n_sub_steps=env.n_sub_steps)
+  benv.reset()
+  (leaf,) = benv.leaves.values()
+  assert leaf.shape[0] == 2 and not torch.equal(leaf[0], leaf[1])
 
 
 # ---------------------------------------------------------------------------
