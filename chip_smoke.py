@@ -24,7 +24,7 @@ Phases, each of which raises on failure (exit code != 0):
      B = 16384, n = 2; cheetah and walker B = 4096, n = 9;
      quadruped.fetch B = 4096, n = 28; quadruped walk and run B = 4096,
      n = 22; humanoid_CMU B = 4096, n = 62, the block rows; swimmer6
-     B = 4096, n = 8): the kernel
+     B = 4096, n = 8; finger B = 4096, n = 3): the kernel
      with the card held by a sleep kernel while the host queues the calls
      (the card's time) and back to back, the other two back to back;
   3. drive the main paths on the card through suite.load and
@@ -32,28 +32,33 @@ Phases, each of which raises on failure (exit code != 0):
      4096 envs x 5 Euler substeps, cartpole.swingup at 16384 envs x 1 RK4
      substep, cheetah.run at 4096 envs (its reset settles for 200 steps)
      walker.walk at 4096 envs x 10 substeps, quadruped.fetch at 4096
-     envs x 4 substeps, humanoid_CMU.run at 4096 envs x 10 substeps, and
-     swimmer.swimmer6 at 4096 envs x 15 substeps through
-     BatchedEnvironment.step, with a time limit of SWIMMER_EPISODE control
+     envs x 4 substeps, humanoid_CMU.run at 4096 envs x 10 substeps, and,
+     through BatchedEnvironment.step with a time limit of EPISODE control
      steps and staggered episode starts, so that every step auto-resets
-     some envs: those must draw new target positions on the card and the
-     others keep theirs; count the kernel's launches in each rollout,
-     report the envs still
+     some envs (those must draw new target positions on the card and the
+     others keep theirs), swimmer.swimmer6 at 4096 envs x 15 substeps and
+     finger.turn_hard at 4096 envs x 2 substeps (elliptic cones, the
+     hinge's frictionloss row); count the kernel's launches in each
+     rollout, the Newton iterations of each constraint solve and the envs
+     with contact.overflow set at each control step (dropped contacts: a
+     printed count, not a gate), time the paths with auto-resets again
+     without them (CORE_STEPS of step_core), report the envs still
      in contact after the reset, active contacts and live constraint rows
      per env, check the outputs and hold the kernel against its plain
      version on every system one more step of each path's end state
      solves (mass matrices and the Euler update at TOL; Newton Hessians
      by backward error, and at TOL where well conditioned); for
-     quadruped.fetch, humanoid_CMU.run and swimmer.swimmer6 count the CUDA
-     kernel launches of one substep and of its MPR groups alone (none in
-     swimmer6) (torch.profiler);
+     quadruped.fetch, humanoid_CMU.run, swimmer.swimmer6 and
+     finger.turn_hard count the CUDA kernel launches of one substep and of
+     its MPR groups alone (none in swimmer6) (torch.profiler);
   4. check one control step on the card against the same step on the CPU
      (where the solve is the plain version) at 4 envs in float64, for
      humanoid, the six domains of the RK4/energy slice, quadruped walk
-     and fetch, humanoid_CMU, ball_in_cup, point_mass, fish, lqr, and the
-     tasks that draw their model each episode (reacher easy and hard,
-     point_mass.hard, fish.swim, swimmer6 and swimmer15), whose drawn
-     leaves go from the card to the CPU with the state;
+     and fetch, humanoid_CMU, ball_in_cup, point_mass, fish, lqr, finger
+     (spin, turn_easy, turn_hard), and the tasks that draw their model
+     each episode (reacher easy and hard, point_mass.hard, fish.swim,
+     swimmer6 and swimmer15, finger's turns), whose drawn leaves go from
+     the card to the CPU with the state;
   5. read hopper.hop's touch observation over control steps on the card:
      it must see contact forces and change from step to step (the
      acceleration-stage sensors come from the last substep's solve).
@@ -71,8 +76,11 @@ import numpy as np
 import torch
 
 ROLLOUT_STEPS = 20
-# control steps of a swimmer episode on its path (its time limit)
-SWIMMER_EPISODE = 8
+# control steps of an episode on the paths with auto-resets (their time
+# limit)
+EPISODE = 8
+# control steps of step_core alone (no resets) timed after such a path
+CORE_STEPS = 5
 # (domain, task, envs, substeps, nv, episode) of each main path; a path
 # with an episode length runs BatchedEnvironment.step with auto-resets,
 # its envs staggered (env i starts at step i % episode), the others
@@ -83,7 +91,8 @@ PATHS = (('humanoid', 'run', 4096, 5, 27, None),
          ('walker', 'walk', 4096, 10, 9, None),
          ('quadruped', 'fetch', 4096, 4, 28, None),
          ('humanoid_CMU', 'run', 4096, 10, 62, None),
-         ('swimmer', 'swimmer6', 4096, 15, 8, SWIMMER_EPISODE))
+         ('swimmer', 'swimmer6', 4096, 15, 8, EPISODE),
+         ('finger', 'turn_hard', 4096, 2, 3, EPISODE))
 SWEEP_BATCH = 4096
 SWEEP_N = (1, 8, 16, 27, 28, 29, 31, 32, 33, 63, 64)
 # every n the suite's ported models give the kernel: pendulum, cartpole,
@@ -98,9 +107,9 @@ HUMANOID_NV = 27
 EDGE_N = (HUMANOID_NV, 62)
 # (batch, n) timed: humanoid's, cartpole's, cheetah's and walker's,
 # quadruped fetch's, quadruped walk's and run's, humanoid_CMU's (the
-# block rows), swimmer6's
+# block rows), swimmer6's, finger's
 TIMED_SHAPES = ((4096, 27), (16384, 2), (4096, 9), (4096, 28), (4096, 22),
-                (4096, 62), (4096, 8))
+                (4096, 62), (4096, 8), (4096, 3))
 # the tasks whose control step is held card against CPU, with the load
 # arguments beyond device and dtype (lqr: the seed of its stiffnesses)
 STEP_DOMAINS = (('humanoid', 'run', {}), ('cartpole', 'swingup', {}),
@@ -113,7 +122,8 @@ STEP_DOMAINS = (('humanoid', 'run', {}), ('cartpole', 'swingup', {}),
                 ('lqr', 'lqr_6_2', {'random': 0}), ('reacher', 'easy', {}),
                 ('reacher', 'hard', {}), ('point_mass', 'hard', {}),
                 ('fish', 'swim', {}), ('swimmer', 'swimmer6', {}),
-                ('swimmer', 'swimmer15', {}))
+                ('swimmer', 'swimmer15', {}), ('finger', 'spin', {}),
+                ('finger', 'turn_easy', {}), ('finger', 'turn_hard', {}))
 # envs and control steps of the phase that reads hopper's touch on the card
 TOUCH_ENVS, TOUCH_STEPS = 256, 25
 # relative error bounds, kernel vs plain version (max over each system of
@@ -450,6 +460,41 @@ def hold_systems(name, systems, solve):
   return res
 
 
+class StepRecorder:
+  """What a rollout's control steps leave behind, recorded as device
+  tensors and read after it: the envs with contact.overflow set at each
+  control step (the task's after_step runs once a control step, on its
+  new state) and the Newton iterations of each constraint solve (the
+  batch's count, at fwd_constraint_batched). Launches nothing of the
+  kernel."""
+
+  def __init__(self, task):
+    from dm_control_tpu_torch.ops import constraint
+    self._task, self._constraint = task, constraint
+    self.overflow, self.niter = [], []
+
+  def __enter__(self):
+    after = self._task.after_step
+    self._solve = solve = self._constraint.fwd_constraint_batched
+
+    def after_step(m, d):
+      self.overflow.append(d.contact.overflow.sum())
+      return after(m, d)
+
+    def fwd_constraint_batched(m, d, compute_forces=True):
+      out = solve(m, d, compute_forces)
+      self.niter.append(out.solver_niter[0])
+      return out
+
+    self._task.after_step = after_step
+    self._constraint.fwd_constraint_batched = fwd_constraint_batched
+    return self
+
+  def __exit__(self, *exc):
+    del self._task.after_step
+    self._constraint.fwd_constraint_batched = self._solve
+
+
 def step_with_resets(benv, name):
   """ROLLOUT_STEPS control steps of BatchedEnvironment.step with uniform
   random actions in [-1, 1). At each step the envs that finish must draw
@@ -526,20 +571,30 @@ def drive_path(domain, task, envs, n_sub, nv, episode, card, timing):
         f'{m.nefc_max} constraint rows, {m.ncon_sel} contact slots, '
         f'n_sub_steps {env.n_sub_steps}, integrator '
         f'{constants.IntegratorType(int(m.opt.integrator)).name}', flush=True)
-  extra = {}
   if episode is not None:
     benv.set_state(benv.state, steps=torch.arange(envs) % episode)
   cuda_kernels.chol_solve_cuda.launches = 0
   t0 = time.perf_counter()
-  if episode is None:
-    data, total = benv.rollout_random(ROLLOUT_STEPS)
-  else:
-    data, total, resets = step_with_resets(benv, name)
+  with StepRecorder(env.task) as rec:
+    if episode is None:
+      data, total = benv.rollout_random(ROLLOUT_STEPS)
+    else:
+      data, total, resets = step_with_resets(benv, name)
   torch.cuda.synchronize()
   wall = time.perf_counter() - t0
   launches = cuda_kernels.chol_solve_cuda.launches
+  overflow_steps = [int(v) for v in rec.overflow]
+  niter = torch.stack(rec.niter).float() if rec.niter else torch.zeros(1)
+  extra = dict(overflow_envs_per_step=overflow_steps,
+               newton_iters_mean=niter.mean().item(),
+               newton_iters_max=int(niter.max()), solves=len(rec.niter))
+  print(f'[3] {name}: envs with contact.overflow set, each control step: '
+        f'{overflow_steps}; Newton iterations a constraint solve (the '
+        f'batch\'s): mean {extra["newton_iters_mean"]:.2f}, max '
+        f'{extra["newton_iters_max"]} of {m.opt.solver_iterations}, '
+        f'{len(rec.niter)} solves', flush=True)
   if episode is not None:
-    extra = dict(episode_steps=episode, resets=int(resets.sum()),
+    extra.update(episode_steps=episode, resets=int(resets.sum()),
                  resets_min=int(resets.min()))
     print(f'[3] {name}: BatchedEnvironment.step with auto-resets every '
           f'{episode} control steps, envs staggered: {extra["resets"]} '
@@ -582,7 +637,24 @@ def drive_path(domain, task, envs, n_sub, nv, episode, card, timing):
         f'max {int(live_rows.max())} of {m.nefc_max}; contact.overflow in '
         f'{overflow} '
         f'envs', flush=True)
-  if domain in ('quadruped', 'humanoid_CMU', 'swimmer'):
+  if episode is not None:
+    # the same control steps without the auto-resets: step_core alone,
+    # from the path's end state
+    gen = torch.Generator(device=m.device).manual_seed(11)
+    state = benv.state
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(CORE_STEPS):
+      actions = torch.rand((envs, m.nu), generator=gen, device=m.device)
+      state = benv.step_core(state, actions * 2 - 1)[0]
+    torch.cuda.synchronize()
+    core_ms = (time.perf_counter() - t1) * 1e3 / CORE_STEPS
+    extra['control_step_ms_without_resets'] = core_ms
+    print(f'[3] {name}: {CORE_STEPS} control steps of step_core alone (no '
+          f'resets): {core_ms:.1f} ms a control step, so the resets took '
+          f'{step_ms - core_ms:.1f} of the path\'s {step_ms:.1f} ms',
+          flush=True)
+  if domain in ('quadruped', 'humanoid_CMU', 'swimmer', 'finger'):
     (sub_k, sub_c), (mpr_k, mpr_c), n_groups = mpr_launches(bm, data)
     print(f'[3] {name}: torch.profiler, one substep of {envs} envs: '
           f'{sub_k} CUDA kernels ({sub_c} launch calls); its {n_groups} MPR '

@@ -1,11 +1,11 @@
 """Sensors of the ported slice, batched.
 
 Port of dm_control_tpu/ops/sensor.py for the sensor types of the ported
-domains: subtreecom, subtreelinvel, velocimeter, gyro and the frame group
-(framepos, framequat, framexaxis, frameyaxis, framezaxis, framelinvel,
-frameangvel) in the position/velocity stage; touch, accelerometer, force
-and torque in the acceleration stage. Any other type raises
-NotImplementedError.
+domains: jointpos, jointvel, subtreecom, subtreelinvel, velocimeter, gyro
+and the frame group (framepos, framequat, framexaxis, frameyaxis,
+framezaxis, framelinvel, frameangvel) in the position/velocity stage;
+touch, accelerometer, force and torque in the acceleration stage. Any
+other type raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -25,8 +25,8 @@ _OBJ = constants.ObjType
 # body frame (xpos, xmat) and reftype is not read
 _FRAME = (_S.FRAMEPOS, _S.FRAMEQUAT, _S.FRAMEXAXIS, _S.FRAMEYAXIS,
           _S.FRAMEZAXIS, _S.FRAMELINVEL, _S.FRAMEANGVEL)
-_PV_STAGE = (_S.SUBTREECOM, _S.SUBTREELINVEL, _S.VELOCIMETER,
-             _S.GYRO) + _FRAME
+_PV_STAGE = (_S.JOINTPOS, _S.JOINTVEL, _S.SUBTREECOM, _S.SUBTREELINVEL,
+             _S.VELOCIMETER, _S.GYRO) + _FRAME
 _ACC_STAGE = (_S.TOUCH, _S.ACCELEROMETER, _S.FORCE, _S.TORQUE)
 
 
@@ -135,7 +135,11 @@ def sensors(m: Model, d: Data, stages: str = 'all') -> Data:
     st = m.sensor_type[i]
     oid = m.sensor_objid[i]
     adr, dim = m.sensor_adr[i], m.sensor_dim[i]
-    if st == _S.SUBTREECOM:
+    if st == _S.JOINTPOS:
+      val = d.qpos[:, m.jnt_qposadr[oid]]
+    elif st == _S.JOINTVEL:
+      val = d.qvel[:, m.jnt_dofadr[oid]]
+    elif st == _S.SUBTREECOM:
       val = d.subtree_com[:, oid]
     elif st == _S.SUBTREELINVEL:
       if vcom is None:
