@@ -14,7 +14,8 @@ Phases, each of which raises on failure (exit code != 0):
   2. compare the kernel with its plain PyTorch version on the card at
      B = 4096, n in {1, 8, 16, 27, 28, 29, 31, 32, 33, 63, 64} (both
      variants and their edges), at every n the suite's models give it,
-     {1, 2, 3, 4, 6, 7, 8, 9, 13, 17, 22, 28, 62}, at B = 16384 and 4096,
+     {1, 2, 3, 4, 6, 7, 8, 9, 11, 13, 14, 17, 20, 22, 28, 62}, at
+     B = 16384 and 4096,
      float32
      and float64, with diagonals spanning 1e-6..1, and, at n = 27 and 62,
      on a ragged batch at a misaligned address, a batch with singular
@@ -24,7 +25,8 @@ Phases, each of which raises on failure (exit code != 0):
      B = 16384, n = 2; cheetah and walker B = 4096, n = 9;
      quadruped.fetch B = 4096, n = 28; quadruped walk and run B = 4096,
      n = 22; humanoid_CMU B = 4096, n = 62, the block rows; swimmer6
-     B = 4096, n = 8; finger B = 4096, n = 3): the kernel
+     B = 4096, n = 8; finger B = 4096, n = 3; stacker.stack_4 B = 4096,
+     n = 20): the kernel
      with the card held by a sleep kernel while the host queues the calls
      (the card's time) and back to back, the other two back to back;
   3. drive the main paths on the card through suite.load and
@@ -36,29 +38,34 @@ Phases, each of which raises on failure (exit code != 0):
      through BatchedEnvironment.step with a time limit of EPISODE control
      steps and staggered episode starts, so that every step auto-resets
      some envs (those must draw new target positions on the card and the
-     others keep theirs), swimmer.swimmer6 at 4096 envs x 15 substeps and
+     others keep theirs), swimmer.swimmer6 at 4096 envs x 15 substeps,
      finger.turn_hard at 4096 envs x 2 substeps (elliptic cones, the
-     hinge's frictionloss row); count the kernel's launches in each
+     hinge's frictionloss row) and stacker.stack_4 at 4096 envs x 10
+     substeps (the box pairs; each reset draws the target's body_pos);
+     count the kernel's launches in each
      rollout, the Newton iterations of each constraint solve and the envs
      with contact.overflow set at each control step (dropped contacts: a
-     printed count, not a gate), time the paths with auto-resets again
+     printed count, not a gate) and the rounds of each rejection-sampling
+     reset, time the paths with auto-resets again
      without them (CORE_STEPS of step_core), report the envs still
      in contact after the reset, active contacts and live constraint rows
      per env, check the outputs and hold the kernel against its plain
      version on every system one more step of each path's end state
      solves (mass matrices and the Euler update at TOL; Newton Hessians
      by backward error, and at TOL where well conditioned); for
-     quadruped.fetch, humanoid_CMU.run, swimmer.swimmer6 and
-     finger.turn_hard count the CUDA kernel launches of one substep and of
-     its MPR groups alone (none in swimmer6) (torch.profiler);
+     quadruped.fetch, humanoid_CMU.run, swimmer.swimmer6,
+     finger.turn_hard and stacker.stack_4 count the CUDA kernel launches
+     of one substep and of its MPR groups alone (none in swimmer6 and
+     stack_4) (torch.profiler);
   4. check one control step on the card against the same step on the CPU
      (where the solve is the plain version) at 4 envs in float64, for
      humanoid, the six domains of the RK4/energy slice, quadruped walk
      and fetch, humanoid_CMU, ball_in_cup, point_mass, fish, lqr, finger
      (spin, turn_easy, turn_hard), and the tasks that draw their model
      each episode (reacher easy and hard, point_mass.hard, fish.swim,
-     swimmer6 and swimmer15, finger's turns), whose drawn leaves go from
-     the card to the CPU with the state;
+     swimmer6 and swimmer15, finger's turns, manipulator bring_ball,
+     bring_peg, insert_ball and insert_peg, stacker stack_2 and stack_4),
+     whose drawn leaves go from the card to the CPU with the state;
   5. read hopper.hop's touch observation over control steps on the card:
      it must see contact forces and change from step to step (the
      acceleration-stage sensors come from the last substep's solve).
@@ -92,14 +99,16 @@ PATHS = (('humanoid', 'run', 4096, 5, 27, None),
          ('quadruped', 'fetch', 4096, 4, 28, None),
          ('humanoid_CMU', 'run', 4096, 10, 62, None),
          ('swimmer', 'swimmer6', 4096, 15, 8, EPISODE),
-         ('finger', 'turn_hard', 4096, 2, 3, EPISODE))
+         ('finger', 'turn_hard', 4096, 2, 3, EPISODE),
+         ('stacker', 'stack_4', 4096, 10, 20, EPISODE))
 SWEEP_BATCH = 4096
 SWEEP_N = (1, 8, 16, 27, 28, 29, 31, 32, 33, 63, 64)
 # every n the suite's ported models give the kernel: pendulum, cartpole,
 # acrobot, point_mass, reacher and lqr_2_1, two and three poles,
-# ball_in_cup, lqr_6_2, hopper, swimmer6, cheetah and walker, fish,
-# swimmer15, quadruped walk and run, quadruped fetch, humanoid_CMU
-SUITE_N = (1, 2, 3, 4, 6, 7, 8, 9, 13, 17, 22, 28, 62)
+# ball_in_cup, lqr_6_2, hopper, swimmer6, cheetah and walker, manipulator,
+# fish, stack_2, swimmer15, stack_4, quadruped walk and run, quadruped
+# fetch, humanoid_CMU
+SUITE_N = (1, 2, 3, 4, 6, 7, 8, 9, 11, 13, 14, 17, 20, 22, 28, 62)
 SUITE_BATCHES = (16384, 4096)
 HUMANOID_NV = 27
 # the n of the misaligned, singular and upper-NaN cases: humanoid's
@@ -107,9 +116,9 @@ HUMANOID_NV = 27
 EDGE_N = (HUMANOID_NV, 62)
 # (batch, n) timed: humanoid's, cartpole's, cheetah's and walker's,
 # quadruped fetch's, quadruped walk's and run's, humanoid_CMU's (the
-# block rows), swimmer6's, finger's
+# block rows), swimmer6's, finger's, stack_4's
 TIMED_SHAPES = ((4096, 27), (16384, 2), (4096, 9), (4096, 28), (4096, 22),
-                (4096, 62), (4096, 8), (4096, 3))
+                (4096, 62), (4096, 8), (4096, 3), (4096, 20))
 # the tasks whose control step is held card against CPU, with the load
 # arguments beyond device and dtype (lqr: the seed of its stiffnesses)
 STEP_DOMAINS = (('humanoid', 'run', {}), ('cartpole', 'swingup', {}),
@@ -123,7 +132,12 @@ STEP_DOMAINS = (('humanoid', 'run', {}), ('cartpole', 'swingup', {}),
                 ('reacher', 'hard', {}), ('point_mass', 'hard', {}),
                 ('fish', 'swim', {}), ('swimmer', 'swimmer6', {}),
                 ('swimmer', 'swimmer15', {}), ('finger', 'spin', {}),
-                ('finger', 'turn_easy', {}), ('finger', 'turn_hard', {}))
+                ('finger', 'turn_easy', {}), ('finger', 'turn_hard', {}),
+                ('manipulator', 'bring_ball', {}),
+                ('manipulator', 'bring_peg', {}),
+                ('manipulator', 'insert_ball', {}),
+                ('manipulator', 'insert_peg', {}), ('stacker', 'stack_2', {}),
+                ('stacker', 'stack_4', {}))
 # envs and control steps of the phase that reads hopper's touch on the card
 TOUCH_ENVS, TOUCH_STEPS = 256, 25
 # relative error bounds, kernel vs plain version (max over each system of
@@ -495,6 +509,42 @@ class StepRecorder:
     self._constraint.fwd_constraint_batched = self._solve
 
 
+class ResetRounds:
+  """The rounds of each rejection-sampling reset while in the block
+  (suite.base.contact_free_qpos): the draws after the first of each call,
+  read from the host's count of its draw calls."""
+
+  def __enter__(self):
+    from dm_control_tpu_torch.suite import base
+    self._base, sampler = base, base.contact_free_qpos
+    self.rounds = []
+
+    def counting(model, batch, draw, max_rounds):
+      calls = []
+
+      def counted(idx):
+        calls.append(len(idx))
+        return draw(idx)
+
+      out = sampler(model, batch, counted, max_rounds)
+      self.rounds.append(len(calls) - 1)
+      return out
+
+    base.contact_free_qpos = counting
+    self._sampler = sampler
+    return self
+
+  def __exit__(self, *exc):
+    self._base.contact_free_qpos = self._sampler
+
+  def summary(self) -> str:
+    if not self.rounds:
+      return 'no rejection sampling'
+    r = self.rounds
+    return (f'{len(r)} rejection-sampling call(s), rounds after the first '
+            f'draw: mean {sum(r) / len(r):.2f}, max {max(r)}')
+
+
 def step_with_resets(benv, name):
   """ROLLOUT_STEPS control steps of BatchedEnvironment.step with uniform
   random actions in [-1, 1). At each step the envs that finish must draw
@@ -555,7 +605,8 @@ def drive_path(domain, task, envs, n_sub, nv, episode, card, timing):
                             n_sub_steps=env.n_sub_steps, seed=0)
   cuda_kernels.chol_solve_cuda.launches = 0
   t0 = time.perf_counter()
-  obs = benv.reset()
+  with ResetRounds() as first_rounds:
+    obs = benv.reset()
   torch.cuda.synchronize()
   reset_s = time.perf_counter() - t0
   reset_launches = cuda_kernels.chol_solve_cuda.launches
@@ -567,7 +618,8 @@ def drive_path(domain, task, envs, n_sub, nv, episode, card, timing):
   init_contact = int(benv.data.contact.active.any(dim=-1).sum())
   print(f'[3] {name}: model build {build_s:.2f} s, reset of {envs} envs '
         f'{reset_s:.2f} s ({reset_launches} chol_solve launches; '
-        f'{init_contact} envs in contact after it); nv {m.nv}, '
+        f'{init_contact} envs in contact after it; '
+        f'{first_rounds.summary()}); nv {m.nv}, '
         f'{m.nefc_max} constraint rows, {m.ncon_sel} contact slots, '
         f'n_sub_steps {env.n_sub_steps}, integrator '
         f'{constants.IntegratorType(int(m.opt.integrator)).name}', flush=True)
@@ -575,7 +627,7 @@ def drive_path(domain, task, envs, n_sub, nv, episode, card, timing):
     benv.set_state(benv.state, steps=torch.arange(envs) % episode)
   cuda_kernels.chol_solve_cuda.launches = 0
   t0 = time.perf_counter()
-  with StepRecorder(env.task) as rec:
+  with StepRecorder(env.task) as rec, ResetRounds() as auto_rounds:
     if episode is None:
       data, total = benv.rollout_random(ROLLOUT_STEPS)
     else:
@@ -587,7 +639,9 @@ def drive_path(domain, task, envs, n_sub, nv, episode, card, timing):
   niter = torch.stack(rec.niter).float() if rec.niter else torch.zeros(1)
   extra = dict(overflow_envs_per_step=overflow_steps,
                newton_iters_mean=niter.mean().item(),
-               newton_iters_max=int(niter.max()), solves=len(rec.niter))
+               newton_iters_max=int(niter.max()), solves=len(rec.niter),
+               reset_rounds=first_rounds.rounds,
+               auto_reset_rounds=auto_rounds.rounds)
   print(f'[3] {name}: envs with contact.overflow set, each control step: '
         f'{overflow_steps}; Newton iterations a constraint solve (the '
         f'batch\'s): mean {extra["newton_iters_mean"]:.2f}, max '
@@ -601,7 +655,7 @@ def drive_path(domain, task, envs, n_sub, nv, episode, card, timing):
           f'env resets in {ROLLOUT_STEPS} steps, at least '
           f'{extra["resets_min"]} an env; each reset env drew new leaves '
           f'({", ".join(benv.leaves)}) on the card and every other env kept '
-          'its own', flush=True)
+          f'its own; auto-resets: {auto_rounds.summary()}', flush=True)
   bm = benv.batch_model
   diverged = data.divergence
   rate = envs * ROLLOUT_STEPS / wall
@@ -654,7 +708,8 @@ def drive_path(domain, task, envs, n_sub, nv, episode, card, timing):
           f'resets): {core_ms:.1f} ms a control step, so the resets took '
           f'{step_ms - core_ms:.1f} of the path\'s {step_ms:.1f} ms',
           flush=True)
-  if domain in ('quadruped', 'humanoid_CMU', 'swimmer', 'finger'):
+  if domain in ('quadruped', 'humanoid_CMU', 'swimmer', 'finger',
+                'stacker'):
     (sub_k, sub_c), (mpr_k, mpr_c), n_groups = mpr_launches(bm, data)
     print(f'[3] {name}: torch.profiler, one substep of {envs} envs: '
           f'{sub_k} CUDA kernels ({sub_c} launch calls); its {n_groups} MPR '

@@ -4,8 +4,9 @@ Counterpart of dm_control_tpu/models/types.py with the same field names.
 Static structure (sizes, tree topology, joint types, slot layouts) stays as
 Python ints and tuples. Parameters are tensors on the model's device in its
 float dtype, shared by every environment of a batch, except the leaves a
-task may draw anew each episode (`RANDOMIZED`): those may carry a leading
-batch axis, one row an environment (`Model.with_leaves`). Every Data
+task may draw anew each episode (`RANDOMIZED`: geom_pos, site_pos,
+wrap_prm, body_pos and body_quat): those may carry a leading batch axis,
+one row an environment (`Model.with_leaves`, `Model.env_rows`). Every Data
 tensor has a leading batch axis: `(B, ...)`.
 
 `model_from_numpy` and `data_from_numpy` build these from plain numpy
@@ -36,11 +37,16 @@ def _to_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 # The leaves that a task may draw for each environment (reacher, fish.swim
-# and swimmer move a target geom, point_mass.hard redraws its tendon
-# coefficients). Unbatched by default: (ngeom, 3), (nsite, 3), (nwrap,);
-# per environment (B, ngeom, 3), (B, nsite, 3), (B, nwrap). Only
-# `smooth.kinematics` and `smooth.tendon` read them.
-RANDOMIZED = ('geom_pos', 'site_pos', 'wrap_prm')
+# and swimmer move a target geom, finger.turn a target site,
+# point_mass.hard redraws its tendon coefficients, manipulator and stacker
+# move their target and receptacle bodies). Unbatched by default:
+# (ngeom, 3), (nsite, 3), (nwrap,), (nbody, 3), (nbody, 4); per
+# environment (B, ngeom, 3), (B, nsite, 3), (B, nwrap), (B, nbody, 3),
+# (B, nbody, 4). Only `smooth.kinematics` and `smooth.tendon` read them.
+RANDOMIZED = ('geom_pos', 'site_pos', 'wrap_prm', 'body_pos', 'body_quat')
+# the rank of each such leaf without its batch axis
+_LEAF_RANK = {'geom_pos': 2, 'site_pos': 2, 'wrap_prm': 1, 'body_pos': 2,
+              'body_quat': 2}
 
 
 def _meta(default=None):
@@ -267,13 +273,26 @@ class Model(_Base):
     return dataclasses.replace(self, **updates)
 
   def with_leaves(self, **leaves) -> 'Model':
-    """This model with some RANDOMIZED leaves replaced, e.g. by one row an
-    environment. The memo (schedules, plans, index tensors) is shared,
-    not rebuilt: nothing in it reads those leaves."""
+    """This model with some RANDOMIZED leaves replaced by one row an
+    environment, (B,) + the compiled leaf's shape. The memo (schedules,
+    plans, index tensors) is shared, not rebuilt: nothing in it reads
+    those leaves."""
     bad = set(leaves) - set(RANDOMIZED)
     if bad:
       raise ValueError(f'not a per-env leaf: {sorted(bad)}')
+    for k, v in leaves.items():
+      rank = _LEAF_RANK[k]
+      if v.dim() != rank + 1 or v.shape[1:] != getattr(self, k).shape[-rank:]:
+        raise ValueError(f'{k} of shape {tuple(v.shape)} is not one row an '
+                         'environment')
     return dataclasses.replace(self, consts=self.consts, **leaves)
+
+  def env_rows(self, idx: torch.Tensor) -> 'Model':
+    """The model of the environments `idx` ((n,) indices): each per-env
+    leaf cut to their rows; a model without per-env leaves is itself."""
+    leaves = {k: getattr(self, k)[idx] for k in RANDOMIZED
+              if getattr(self, k).dim() == _LEAF_RANK[k] + 1}
+    return self.with_leaves(**leaves) if leaves else self
 
   @property
   def device(self) -> torch.device:

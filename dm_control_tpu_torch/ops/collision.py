@@ -1,17 +1,19 @@
 """Narrowphase collision into static contact slots, batched.
 
-Port of dm_control_tpu/ops/collision.py for the primitive pairs the ported
-domains need. Closed forms: plane against sphere, capsule, cylinder and
-ellipsoid; sphere against sphere, capsule, cylinder and ellipsoid; capsule
-against capsule and cylinder. Other pairs of primitive convex geoms
-(capsule-ellipsoid, ellipsoid-cylinder, ...) go through Minkowski portal
+Port of dm_control_tpu/ops/collision.py for its primitive pairs. Closed
+forms: plane against sphere, capsule, cylinder, ellipsoid and box; sphere
+against sphere, capsule, cylinder, ellipsoid and box; capsule against
+capsule, cylinder and box; box against box (separating axes, then
+face-patch samples or an edge pair's closest points). The box pairs are the
+JAX package's approximations, copied as they are: plane-box keeps the four
+deepest corners, capsule-box is a sphere-box contact at each end of the
+capsule. Other pairs of primitive convex geoms (capsule-ellipsoid,
+ellipsoid-cylinder, cylinder-box, ...) go through Minkowski portal
 refinement (ops/mpr.py), as in the JAX package. The candidate list and slot
 layout are the model's static ones; when the model compacts its slots
 (ncon_sel < ncon_max) the deepest slots of each condim group are kept, in
 the same order as the JAX package (a stable descending sort, lower slot
-first among equals). Pairs with a box closed form in the JAX package
-(plane, sphere, capsule or box against a box), meshes and heightfields
-raise NotImplementedError.
+first among equals). Meshes and heightfields raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -179,17 +181,247 @@ def _capsule_cylinder(p1, m1, s1, p2, m2, s2):
           torch.cat([na, nb], dim=-2))
 
 
+# the eight corners of a box as signs, x slowest (the JAX package's order)
+_CORNER_SIGNS = [[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
+                 for sz in (-1, 1)]
+
+
+def _take(x, i):
+  """x[..., i, :] with a per-(B, k) index i ((B, k) ints), x (B, k, m, c)
+  or x[..., i] for x (B, k, m)."""
+  if x.dim() == i.dim() + 1:
+    return torch.gather(x, -1, i[..., None])[..., 0]
+  idx = i[..., None, None].expand(i.shape + (1, x.shape[-1]))
+  return torch.gather(x, -2, idx)[..., 0, :]
+
+
+def _onehot(i, dtype=None):
+  """(B, k, 3) bool (or `dtype`) one-hot rows of axis indices i."""
+  oh = torch.nn.functional.one_hot(i, 3).bool()
+  return oh if dtype is None else oh.to(dtype)
+
+
+def _plane_box(p1, m1, s1, p2, m2, s2):
+  # the four deepest of the eight corners (a stable sort: a box lying flat
+  # keeps its bottom corners in corner order, as jnp.argsort does)
+  n = m1[..., :, 2]
+  signs = torch.as_tensor(_CORNER_SIGNS, dtype=p2.dtype, device=p2.device)
+  corners = p2[..., None, :] + (signs * s2[..., None, :3]) @ m2.transpose(
+      -1, -2)
+  h = mops.dot(corners, n[..., None, :]) - mops.dot(p1, n)[..., None]
+  idx = torch.sort(h, dim=-1, stable=True)[1][..., :4]
+  hh = torch.gather(h, -1, idx)
+  pos = torch.gather(corners, -2, idx[..., None].expand(idx.shape + (3,)))
+  pos = pos - n[..., None, :] * (hh * 0.5)[..., None]
+  return hh, pos, n[..., None, :].expand(pos.shape)
+
+
+def _sphere_box(p1, m1, s1, p2, m2, s2):
+  local = _to_local(m2, p1 - p2)
+  half = s2[..., :3]
+  clamped = torch.minimum(torch.maximum(local, -half), half)
+  inside = torch.all(torch.abs(local) < half, dim=-1)
+  # inside: push out through the nearest face
+  gaps = half - torch.abs(local)
+  ax = _onehot(torch.argmin(gaps, dim=-1))
+  face = torch.where(ax, torch.sign(local) * half, clamped)
+  surface = p2 + _to_world(m2, torch.where(inside[..., None], face, clamped))
+  dif = surface - p1
+  dist = mops.norm(dif)
+  n_out = dif / torch.clamp(dist, min=1e-12)[..., None]
+  n = torch.where(inside[..., None], -n_out, n_out)
+  r = s1[..., 0]
+  pen = torch.where(inside, -dist - r, dist - r)
+  pos = surface - n * (0.5 * pen)[..., None]
+  return pen[..., None], pos[..., None, :], n[..., None, :]
+
+
+def _capsule_box(p1, m1, s1, p2, m2, s2):
+  # a sphere-box contact at each end of the capsule's segment (the JAX
+  # package's approximation, not MuJoCo's capsule-box)
+  a1, h1 = m1[..., :, 2], s1[..., 1, None]
+  da, posa, na = _sphere_box(p1 - a1 * h1, m1, s1, p2, m2, s2)
+  db, posb, nb = _sphere_box(p1 + a1 * h1, m1, s1, p2, m2, s2)
+  return (torch.cat([da, db], dim=-1), torch.cat([posa, posb], dim=-2),
+          torch.cat([na, nb], dim=-2))
+
+
+def _box_face_contacts(ref_half, inc_half, rot_ri, t_ri, k, sign):
+  """Up to 8 contacts of an incident box on face k of a reference box at
+  the origin, in the reference frame (the JAX package's face-patch
+  sampling). rot_ri (B, k, 3, 3) takes incident-frame vectors to the
+  reference frame, t_ri (B, k, 3) is the incident centre, k (B, k) the
+  face axis and sign (B, k) the side of the face normal that points at
+  the incident box. Returns (dist (B, k, 8), pos (B, k, 8, 3))."""
+  shape = t_ri.shape
+  ref_half = torch.broadcast_to(ref_half, shape)
+  inc_half = torch.broadcast_to(inc_half, shape)
+  u, v = (k + 1) % 3, (k + 2) % 3
+  # the incident face: the incident axis most anti-parallel to the normal
+  n_in_inc = sign[..., None] * _take(rot_ri, k)
+  inc_axis = torch.argmax(torch.abs(n_in_inc), dim=-1)
+  inc_sign = -_take(torch.sign(n_in_inc), inc_axis)
+  onehot = _onehot(inc_axis, t_ri.dtype)
+  fc = (inc_sign * _take(inc_half, inc_axis))[..., None] * onehot
+  au, av = (inc_axis + 1) % 3, (inc_axis + 2) % 3
+  iu = _onehot(au, t_ri.dtype) * _take(inc_half, au)[..., None]
+  iv = _onehot(av, t_ri.dtype) * _take(inc_half, av)[..., None]
+  quad_inc = torch.stack([fc + iu + iv, fc - iu + iv, fc - iu - iv,
+                          fc + iu - iv], dim=-2)
+  quad = quad_inc @ rot_ri.transpose(-1, -2) + t_ri[..., None, :]
+
+  # the incident plane in the reference frame: w . x = w . q0
+  w = _to_world(rot_ri, inc_sign[..., None] * onehot)
+  wq0 = mops.dot(w, quad[..., 0, :])
+  w_k, w_u, w_v = _take(w, k), _take(w, u), _take(w, v)
+  wk = torch.where(torch.abs(w_k) < 1e-8,
+                   torch.sign(w_k + 1e-30) * 1e-8, w_k)
+
+  def plane_coord(pu, pv):
+    # x[k] on the incident plane at (x[u], x[v]) = (pu, pv)
+    return ((wq0[..., None] - w_u[..., None] * pu - w_v[..., None] * pv) /
+            wk[..., None])
+
+  hu, hv, hk = _take(ref_half, u), _take(ref_half, v), _take(ref_half, k)
+  qu = _take(quad, u[..., None].expand(u.shape + (4,)))
+  qv = _take(quad, v[..., None].expand(v.shape + (4,)))
+  # candidates 0-3: the incident corners clamped into the reference face
+  cu = torch.minimum(torch.maximum(qu, -hu[..., None]), hu[..., None])
+  cv = torch.minimum(torch.maximum(qv, -hv[..., None]), hv[..., None])
+  ck = plane_coord(cu, cv)
+  # candidates 4-7: the reference face's corners inside the incident
+  # quad's (u, v) projection
+  su = torch.tensor([1.0, -1.0, -1.0, 1.0], dtype=t_ri.dtype,
+                    device=t_ri.device)
+  sv = torch.tensor([1.0, 1.0, -1.0, -1.0], dtype=t_ri.dtype,
+                    device=t_ri.device)
+  ru, rv = su * hu[..., None], sv * hv[..., None]
+  rk = plane_coord(ru, rv)
+  # point in quad: every edge's cross product of one sign
+  cross = torch.stack([
+      (qu[..., (e + 1) % 4] - qu[..., e])[..., None] * (
+          rv - qv[..., e, None]) -
+      (qv[..., (e + 1) % 4] - qv[..., e])[..., None] * (
+          ru - qu[..., e, None]) for e in range(4)], dim=-1)
+  ok_ref = (torch.all(cross >= -1e-9, dim=-1) |
+            torch.all(cross <= 1e-9, dim=-1))
+  ok = torch.cat([torch.ones_like(ok_ref), ok_ref], dim=-1)
+  cand_u = torch.cat([cu, ru], dim=-1)[..., None]          # (B, k, 8, 1)
+  cand_v = torch.cat([cv, rv], dim=-1)[..., None]
+  cand_k = torch.cat([ck, rk], dim=-1)[..., None]
+  is_u = _onehot(u)[..., None, :]
+  is_v = _onehot(v)[..., None, :]
+  is_k = _onehot(k)[..., None, :]
+  pts = torch.where(is_u, cand_u, torch.where(is_v, cand_v, cand_k))
+  depth = sign[..., None] * cand_k[..., 0] - hk[..., None]  # < 0: overlap
+  dist = torch.where(ok, depth, torch.full_like(depth, _BIG))
+  # the contact point midway between the point and the reference face
+  proj = torch.where(is_k, (sign * hk)[..., None, None], pts)
+  return dist, 0.5 * (pts + proj)
+
+
+def _box_box(p1, m1, s1, p2, m2, s2):
+  """Separating axes, then the face-patch samples of the best face axis
+  or the closest points of the best edge pair (the JAX package's
+  approximation of polygon clipping, alike for aligned stacks)."""
+  a, b = s1[..., :3], s2[..., :3]
+  c = m1.transpose(-1, -2) @ m2          # B-frame vectors into A's frame
+  t = _to_local(m1, p2 - p1)             # B's centre in A's frame
+  absc = torch.abs(c) + 1e-9
+  sep_a = torch.abs(t) - (a + (absc @ b[..., None])[..., 0])
+  t_b = _to_local(c, t)
+  sep_b = torch.abs(t_b) - (b + (absc.transpose(-1, -2) @ a[..., None])[
+      ..., 0])
+
+  eye = torch.eye(3, dtype=t.dtype, device=t.device)
+  edge_seps, edge_axes = [], []
+  for i in range(3):
+    for j in range(3):
+      axis = mops.cross(eye[i].expand(t.shape), c[..., :, j])
+      nrm = mops.norm(axis)
+      inv = torch.clamp(nrm, min=1e-12)
+      axis_n = axis / inv[..., None]
+      i1, i2, j1, j2 = (i + 1) % 3, (i + 2) % 3, (j + 1) % 3, (j + 2) % 3
+      ra = (a[..., i1] * absc[..., i2, j] + a[..., i2] * absc[..., i1, j]) / inv
+      rb = (b[..., j1] * absc[..., i, j2] + b[..., j2] * absc[..., i, j1]) / inv
+      sep = torch.abs(mops.dot(t, axis_n)) - (ra + rb)
+      edge_seps.append(torch.where(nrm > 1e-6, sep,
+                                   torch.full_like(sep, -_BIG)))
+      edge_axes.append(axis_n)
+  edge_seps = torch.stack(edge_seps, dim=-1)         # (B, k, 9)
+  edge_axes = torch.stack(edge_axes, dim=-2)         # (B, k, 9, 3)
+
+  face_seps = torch.cat([sep_a, sep_b], dim=-1)      # (B, k, 6)
+  separated = torch.maximum(face_seps.amax(-1), edge_seps.amax(-1)) > 0
+  # argmax takes the first of equal maxima, as jnp.argmax does
+  best_face = torch.argmax(face_seps, dim=-1)
+  best_edge = torch.argmax(edge_seps, dim=-1)
+  # a face contact unless an edge axis is clearly better
+  use_edge = _take(edge_seps, best_edge) > _take(face_seps, best_face) + 1e-9
+  a_is_ref = best_face < 3
+  ref = torch.where(a_is_ref, best_face, best_face - 3)
+  e_ref = _onehot(ref, t.dtype)
+
+  sign_a = torch.sign(_take(t, ref) + 1e-30)
+  dist_fa, pos_fa = _box_face_contacts(a, b, c, t, ref, sign_a)
+  pos_fa = pos_fa @ m1.transpose(-1, -2) + p1[..., None, :]
+  n_fa = _to_world(m1, sign_a[..., None] * e_ref)
+  side_b = torch.sign(_take(t_b, ref) + 1e-30)
+  dist_fb, pos_fb = _box_face_contacts(b, a, c.transpose(-1, -2), -t_b, ref,
+                                       -side_b)
+  pos_fb = pos_fb @ m2.transpose(-1, -2) + p2[..., None, :]
+  n_fb = _to_world(m2, side_b[..., None] * e_ref)
+  dist_face = torch.where(a_is_ref[..., None], dist_fa, dist_fb)
+  pos_face = torch.where(a_is_ref[..., None, None], pos_fa, pos_fb)
+  n_face = torch.where(a_is_ref[..., None], n_fa, n_fb)
+
+  # edge-edge: the closest points of the two boxes' edges along the axis
+  i_e, j_e = best_edge // 3, best_edge % 3
+  axis_e = _take(edge_axes, best_edge)
+  axis_e = axis_e * torch.sign(mops.dot(axis_e, t) + 1e-30)[..., None]
+  oh_i, oh_j = _onehot(i_e), _onehot(j_e)
+  corner_a = torch.where(oh_i, torch.zeros_like(axis_e),
+                         torch.sign(axis_e) * a)
+  axis_e_b = _to_local(c, axis_e)
+  corner_b = _to_world(c, torch.where(oh_j, torch.zeros_like(axis_e),
+                                      -torch.sign(axis_e_b) * b)) + t
+  dir_a = oh_i.to(t.dtype)
+  dir_b = _take(c.transpose(-1, -2), j_e)
+  ha = _take(torch.broadcast_to(a, t.shape), i_e)[..., None]
+  hb = _take(torch.broadcast_to(b, t.shape), j_e)[..., None]
+  pa, pb = mops.closest_segment_segment(
+      corner_a - dir_a * ha, corner_a + dir_a * ha,
+      corner_b - dir_b * hb, corner_b + dir_b * hb)
+  dist_edge = _take(edge_seps, best_edge)
+  pos_edge = _to_world(m1, 0.5 * (pa + pb)) + p1
+  n_edge = _to_world(m1, axis_e)
+
+  first = torch.arange(8, device=t.device) == 0
+  dist_e8 = torch.where(first, dist_edge[..., None], _BIG)
+  pos_e8 = torch.where(first[:, None], pos_edge[..., None, :], 0.0)
+  dist8 = torch.where(use_edge[..., None], dist_e8, dist_face)
+  pos8 = torch.where(use_edge[..., None, None], pos_e8, pos_face)
+  n8 = torch.where(use_edge[..., None], n_edge, n_face)[..., None, :].expand(
+      pos8.shape)
+  dist8 = torch.where(separated[..., None], _BIG, dist8)
+  return dist8, pos8, n8
+
+
 _FUNCS = {
     (_G.PLANE, _G.SPHERE): _plane_sphere,
     (_G.PLANE, _G.CAPSULE): _plane_capsule,
     (_G.PLANE, _G.ELLIPSOID): _plane_ellipsoid,
     (_G.PLANE, _G.CYLINDER): _plane_cylinder,
+    (_G.PLANE, _G.BOX): _plane_box,
     (_G.SPHERE, _G.SPHERE): _sphere_sphere,
     (_G.SPHERE, _G.CAPSULE): _sphere_capsule,
     (_G.SPHERE, _G.ELLIPSOID): _sphere_ellipsoid,
     (_G.SPHERE, _G.CYLINDER): _sphere_cylinder,
+    (_G.SPHERE, _G.BOX): _sphere_box,
     (_G.CAPSULE, _G.CAPSULE): _capsule_capsule,
     (_G.CAPSULE, _G.CYLINDER): _capsule_cylinder,
+    (_G.CAPSULE, _G.BOX): _capsule_box,
+    (_G.BOX, _G.BOX): _box_box,
 }
 
 # primitive pairs that have no closed form in the JAX package either: one

@@ -2,9 +2,9 @@
 
 Port of dm_control_tpu/ops/smooth.py with an explicit batch axis: every
 Data tensor is (B, ...), Model tensors are shared by the batch, but for
-the per-env leaves of `types.RANDOMIZED` (geom_pos and site_pos, read by
-`kinematics`, and wrap_prm, read by `tendon`), which may carry the batch
-axis too. Tree
+the per-env leaves of `types.RANDOMIZED` (body_pos, body_quat, geom_pos
+and site_pos, read by `kinematics`, and wrap_prm, read by `tendon`), which
+may carry the batch axis too. Tree
 accumulations stay dense products against the model's 0/1 structure masks,
 and forward kinematics sweeps the tree level by level.
 """
@@ -65,8 +65,10 @@ def _fk_schedule(m: Model):
 def kinematics(m: Model, d: Data) -> Data:
   """qpos -> body, geom and site frames and joint anchors/axes.
 
-  geom_pos and site_pos may be per env, (B, ngeom, 3) and (B, nsite, 3):
-  they broadcast against the (B, ngeom) and (B, nsite) frames."""
+  body_pos, body_quat, geom_pos and site_pos may be per env, (B, nbody,
+  3), (B, nbody, 4), (B, ngeom, 3) and (B, nsite, 3): they broadcast
+  against the (B, k) frames of each tree level and the (B, ngeom) and
+  (B, nsite) frames."""
   qpos = d.qpos
   B, dtype, dev = qpos.shape[0], qpos.dtype, qpos.device
   xpos = torch.zeros((B, m.nbody, 3), dtype=dtype, device=dev)
@@ -78,9 +80,13 @@ def kinematics(m: Model, d: Data) -> Data:
   ar4 = m.const('arange4', lambda: np.arange(4))
 
   for ids, parents, slots in _fk_schedule(m):
+    # per-env body poses are indexed on their body axis
+    bpos = m.body_pos[ids] if m.body_pos.dim() == 2 else m.body_pos[:, ids]
+    bquat = (m.body_quat[ids] if m.body_quat.dim() == 2 else
+             m.body_quat[:, ids])
     pq = xquat[:, parents]
-    pos = xpos[:, parents] + mops.rot_vec_quat(m.body_pos[ids], pq)
-    quat = mops.mul_quat(pq, m.body_quat[ids])
+    pos = xpos[:, parents] + mops.rot_vec_quat(bpos, pq)
+    quat = mops.mul_quat(pq, bquat)
     for slot in slots:
       for jt, (li, jid, qadr) in slot.items():
         if jt == _J.FREE:

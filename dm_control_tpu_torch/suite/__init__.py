@@ -5,8 +5,9 @@ from __future__ import annotations
 import importlib
 
 _DOMAINS = ('acrobot', 'ball_in_cup', 'cartpole', 'cheetah', 'finger', 'fish',
-            'hopper', 'humanoid', 'humanoid_CMU', 'lqr', 'pendulum',
-            'point_mass', 'quadruped', 'reacher', 'swimmer', 'walker')
+            'hopper', 'humanoid', 'humanoid_CMU', 'lqr', 'manipulator',
+            'pendulum', 'point_mass', 'quadruped', 'reacher', 'stacker',
+            'swimmer', 'walker')
 
 
 def load(domain_name: str, task_name: str, **task_kwargs):

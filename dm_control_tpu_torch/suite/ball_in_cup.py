@@ -51,7 +51,8 @@ class BallInCup(base.Task):
     first draw."""
     dtype = data.qpos.dtype
 
-    def draw(n):
+    def draw(idx):
+      n = len(idx)
       qpos = model.qpos0.to(dtype).expand(n, model.nq).clone()
       qpos[:, self._ball_x] = base.uniform(generator, (n,), -.2, .2, dtype)
       qpos[:, self._ball_z] = base.uniform(generator, (n,), .2, .5, dtype)

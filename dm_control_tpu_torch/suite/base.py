@@ -118,25 +118,30 @@ def random_limited_qpos_only_limited(model: types.Model, batch: int,
 
 def contact_free_qpos(model: types.Model, batch: int, draw,
                       max_rounds: int) -> torch.Tensor:
-  """Rejection sampling of contact-free poses, (batch, nq).
+  """Rejection sampling of contact-free poses, (batch, nq + c).
 
-  `draw(n)` returns n candidate qpos rows. Only the envs that still have
-  an active contact are redrawn, for at most `max_rounds` rounds after
-  the first draw; an env that still touches then keeps its last draw, as
-  the reference's loop does.
+  `draw(idx)` returns a candidate row for each env of `idx` ((n,) env
+  indices): its qpos, then any c further values drawn with it (a
+  velocity, say). Each env's contacts are those of its own rows of the
+  model's per-env leaves (`Model.env_rows`): a drawn receptacle collides
+  where that env drew it. Only the envs that still have an active contact
+  are redrawn, for at most `max_rounds` rounds after the first draw; an
+  env that still touches then keeps its last draw, as the reference's
+  loop does.
   """
 
-  def n_contacts(qpos):
-    d = types.make_data(model, qpos.shape[0], dtype=qpos.dtype)
-    d = smooth.kinematics(model, d.replace(qpos=qpos))
-    return coll_ops.collision(model, d).contact.active.sum(dim=-1)
+  def n_contacts(m, rows):
+    qpos = rows[:, :model.nq]
+    d = types.make_data(m, qpos.shape[0], dtype=qpos.dtype)
+    d = smooth.kinematics(m, d.replace(qpos=qpos))
+    return coll_ops.collision(m, d).contact.active.sum(dim=-1)
 
-  qpos = draw(batch)
-  n = n_contacts(qpos)
+  rows = draw(torch.arange(batch, device=model.device))
+  n = n_contacts(model, rows)
   for _ in range(max_rounds):
     redo = torch.nonzero(n > 0)[:, 0]
     if not len(redo):
       break
-    qpos[redo] = draw(len(redo))
-    n[redo] = n_contacts(qpos[redo])
-  return qpos
+    rows[redo] = draw(redo)
+    n[redo] = n_contacts(model.env_rows(redo), rows[redo])
+  return rows

@@ -99,8 +99,9 @@ class _FingerTask(base.Task):
     site moves no geom."""
     qpos = base.contact_free_qpos(
         self.model, data.qpos.shape[0],
-        lambda n: base.random_limited_qpos(self.model, n, generator).to(
-            data.qpos.dtype), _MAX_INIT_ROUNDS)
+        lambda idx: base.random_limited_qpos(
+            self.model, len(idx), generator).to(data.qpos.dtype),
+        _MAX_INIT_ROUNDS)
     return data.replace(qpos=qpos)
 
   # the observations read the sensors only, as the reference's do

@@ -72,7 +72,7 @@ class HumanoidCMU(base.Task):
     after the first draw."""
     qpos = base.contact_free_qpos(
         model, data.qpos.shape[0],
-        lambda n: base.random_limited_qpos(model, n, generator).to(
+        lambda idx: base.random_limited_qpos(model, len(idx), generator).to(
             data.qpos.dtype), _MAX_INIT_ROUNDS)
     return data.replace(qpos=qpos)
 

@@ -16,6 +16,10 @@ serializer's crash (see tools/warm_cache.py). The lane then reads what they
 wrote. Test outcomes do not matter here; run the lane afterwards.
 
 Usage:  python tools/warm_lane_cache.py [--jobs 4] [--chunk 4] [-m EXPR]
+                                       [--only tests/test_x.py ...]
+
+--only keeps the tests whose node ids hold one of the given strings: after
+a change to a few files, only their tests need new entries.
 """
 
 import argparse
@@ -57,10 +61,14 @@ def main():
                       help='tests a process')
   parser.add_argument('-m', dest='marks', default='not slow',
                       help="the lane's marker expression")
+  parser.add_argument('--only', nargs='+', default=None,
+                      help='keep the node ids that hold one of these')
   args = parser.parse_args()
   env = dict(os.environ, JAX_PLATFORMS='cpu')
   listing = _pytest(['-m', args.marks, '--collect-only'], env)
   ids = [line for line in listing.stdout.splitlines() if '::' in line]
+  if args.only:
+    ids = [i for i in ids if any(part in i for part in args.only)]
   chunks = [ids[i:i + args.chunk] for i in range(0, len(ids), args.chunk)]
   print(f'{len(ids)} tests in {len(chunks)} processes, {args.jobs} at a '
         'time', flush=True)
